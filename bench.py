@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Headline benchmark: canonical reference workload on one TPU chip.
+"""Headline benchmark: canonical reference workload on one GPU.
 
 Workload = the reference's only config: Y = X @ A, fp32, M=N=4096, ~50%
 sparsity in A and X (test/main.cpp:4, tester.cpp:106,154). Prints ONE JSON
-line. ``vs_baseline`` is speedup over the dense XLA/MXU baseline (the
-cuBLAS-equivalent, cublas.cu:33) on the same chip — the reference's own
+line. ``vs_baseline`` is speedup over the dense cuBLAS baseline through XLA
+(cublas.cu:33) on the same card — the reference's own
 headline comparison (its tester races sparse kernels against cublas,
 tester.cpp:54-63).
 """

@@ -1,11 +1,10 @@
-"""A Flax MLP whose hidden layer is a pruned sparse matrix on the Pallas path.
+"""A Flax MLP whose hidden layer is a pruned sparse matrix.
 
 SparseLinear (tpusparse/nn.py) drops into a linen model like any other
 module: its packed twin-layout values are ordinary flax params, so the
 standard optax train loop below needs nothing sparse-aware. The sparse
-layer's forward AND backward run at format-bytes speed (BENCH.md
-§Training) — at 90% weight sparsity that is ~5-7x fewer HBM bytes than a
-dense hidden layer each step.
+layer's forward AND backward stream the packed format — at 90% weight
+sparsity several times fewer bytes than a dense hidden layer each step.
 
 Run: python examples/08_flax_sparse_mlp.py [--cpu]
 """
@@ -40,7 +39,7 @@ def main():
     class Mlp(fl_nn.Module):
         @fl_nn.compact
         def __call__(self, x):
-            h = SparseHidden()(x)                       # sparse, Pallas path
+            h = SparseHidden()(x)                       # sparse, packed path
             return fl_nn.Dense(d_out)(h)                # small dense head
 
     rng = np.random.default_rng(0)

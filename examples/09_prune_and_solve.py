@@ -4,7 +4,7 @@ Two production workflows the kernel benchmark feeds:
 
 1. PRUNE: a trained dense weight enters, a packed sparse layer leaves.
    ``nm_prune`` (N:M structured along the contraction axis) is the
-   TPU-shaped choice — with M dividing the 128-lane window, the SELL pack
+   SELL-shaped choice — with M dividing the 128-row window, the SELL pack
    has ZERO padding and a uniform width (prune.summary shows it).
 
 2. SOLVE: conjugate gradient on an SPD system, where solver wall-clock

@@ -3,10 +3,9 @@ BiCGStab, and the stencil-halo sharding.
 
 Banded structure (PDE stencils, tridiagonal chains, Toeplitz-ish
 operators) is SHIFT-shaped, not tile-shaped: every slot/tile format pays
-the (8, 128) VREG quantum on each touched tile, while DIA stores k dense
-diagonals and lowers SpMV to k statically shifted VPU fused multiply-adds
-— measured 163x faster per CG iteration on a 1M-unknown Laplacian
-(BENCH.md §Solver). This example shows the three pieces working together
+the 8-slot chunk quantum on each touched tile, while DIA stores k dense
+diagonals and lowers SpMV to k statically shifted fused multiply-adds.
+This example shows the three pieces working together
 on the canonical production consumer of a banded solver — an implicit
 time step:
 
@@ -119,7 +118,7 @@ def main() -> int:
         print(f"halo-sharded over {n_dev} devices: max|err| vs single "
               f"{err:.2e}; halo = {hl + hr} of {n // n_dev} "
               f"elements/slab ({(hl + hr) / (n // n_dev):.1%} of a slab "
-              f"over ICI per boundary)")
+              f"per boundary)")
         assert err < 1e-5, err
     print("OK")
     return 0

@@ -4,14 +4,12 @@ The full pipeline on a 2-D Poisson problem:
 
     scipy stencil -> CsrMatrix -> smoothed_aggregation() hierarchy
     (auto-routed packed formats per level: DIA for the banded fine levels,
-    RSELL/TCSR for the prolongators, dense MXU below the cutoff)
+    RSELL for the prolongators, dense matmuls below the cutoff)
     -> amg.solve(b)  ==  cg(A, b, m_inv=one V-cycle)
 
 Why multigrid here: plain CG on an n-unknown Laplacian needs O(sqrt(cond))
 ~ O(side) iterations — 1114 at 512^2 (and fp32 recurrences stagnate well
 before tight tolerances) — while AMG-CG needs ~6, independent of n.
-Measured on the v5e (BENCH.md §Solver): 70 ms vs 105.6 ms warm at 512^2,
-with the plain-CG number only barely reaching tol=1e-5.
 
 Run:  python examples/11_amg_preconditioned_solve.py [--cpu] [--side 256]
 """

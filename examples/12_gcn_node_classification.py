@@ -1,7 +1,7 @@
 """Graph convolutional network (GCN) node classification on tpusparse.
 
 A 2-layer Kipf-Welling GCN is two SpMMs against a FROZEN sparse operator
-(the normalized adjacency) plus two dense MXU matmuls — exactly this
+(the normalized adjacency) plus two dense matmuls — exactly this
 library's op. The pipeline:
 
 1. ``graph.normalized_adjacency``: A_hat = D^-1/2 (A + I) D^-1/2, built
@@ -12,7 +12,7 @@ library's op. The pipeline:
    pass runs through a transpose-packed twin, no nnz-scale gathers.
 4. Features live CHANNELS-FIRST ``(F, N)`` so propagation is the library's
    row-batch SpMM and the weight mixes are ``(F_out, F_in) @ (F_in, N)``
-   dense MXU matmuls — no transposes anywhere in the training step.
+   dense matmuls — no transposes anywhere in the training step.
 
 Workload: a stochastic block model with 2 communities, 5% labeled nodes,
 semi-supervised cross-entropy. Run: python examples/12_gcn_node_classification.py [--cpu]
@@ -58,8 +58,8 @@ def main():
     a_hat = normalized_adjacency(csr)
     fmt = auto_format(a_hat, expect_batch=max(f0, hidden))
     # Routing note: at F=64-wide batched SpMM the gather formats pay
-    # ~F x their own bytes-time (the measured VPU lane-gather floor,
-    # BENCH.md §floors), so even a 0.5%-dense adjacency routes to a
+    # ~F x their own bytes-time in the router's cost model, so even a
+    # 0.5%-dense adjacency routes to a
     # dense-tile format here — drop expect_batch and the same matrix
     # routes to a gather format for single-vector SpMV.
     print(f"A_hat: n={n}, nnz={a_hat.nnz} -> {type(fmt).__name__}")

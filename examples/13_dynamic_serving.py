@@ -1,18 +1,17 @@
 """Dynamic activation sparsity: serving a changing X with zero host cost.
 
 The reference's headline kernels skip x==0 work per call with no
-preprocessing (asp.cu:20-27, awsp.cu:95-107). On TPU the skip is
+preprocessing (asp.cu:20-27, awsp.cu:95-107). Here the skip is
 window-group-granular, and the plan (which groups are live) is computed
-ON DEVICE under jit — activity mask, compacted group ids, and count are
-XLA ops; the Pallas grid stops at the traced count:
+ON DEVICE under jit — activity mask and compacted group ids are XLA ops,
+padded to one static length with an all-zero group:
 
     y = fmt.spmv(x, plan="device")     # one compile, X free to change
 
 No device->host sync, no per-pattern replanning, no recompilation when
 the activation PATTERN changes (only the layout shape is baked). This is
-the serving loop the reference enables implicitly on SIMT, priced on TPU
-in BENCH.md §dynamic: 2.6x dense at 1/4-live churn, vs ~seconds/step for
-host replanning over the device->host round trip.
+the serving loop the reference enables implicitly on SIMT, without host
+replanning over the device->host round trip.
 
 Run: python examples/13_dynamic_serving.py [--cpu]
 """

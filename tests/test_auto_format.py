@@ -4,6 +4,7 @@ import numpy as np
 
 from tests.conftest import assert_close
 from tpusparse import auto_format, matrix_stats, spmv
+from tpusparse.formats.auto import route
 from tpusparse.testing import generators, reference
 
 
@@ -45,16 +46,13 @@ def test_powerlaw_is_rsell():
 
 
 def test_skew_falls_back_to_binned_when_rsell_vmem_bound_binds():
-    """rsell's wide kernel holds X and Y whole in VMEM up to its 96 MB
-    hard cap (kernels/rsell_spmv.wide_fits — the route MUST use that
-    predicate, not a hand-mirrored copy: an 8 MB drifted copy mis-routed
-    the 262144^2 GB-scale powerlaw to binned, which packed 24.5 GB); on a
-    giant matrix the skew branch must still fall back to binned once the
-    batch pushes past the real cap. Stats are supplied (skew, non-blocky,
-    low density) so only the branch under test varies; the matrix is a
-    real 65536^2 CSR that is never densified."""
+    """Skew routes to RSELL at EVERY size and batch: its product keeps no
+    operand resident in on-chip memory, so no X/Y budget caps it and the
+    skew branch never falls back to binned (which packed a 262144^2
+    powerlaw at 24.5 GB). Stats are supplied (skew, non-blocky, low
+    density) so only the branch under test varies; the matrix is a real
+    65536^2 CSR that is never densified."""
     from tpusparse.formats.csr import CsrMatrix
-    from tpusparse.kernels.rsell_spmv import wide_fits
 
     n = 65536
     rng = np.random.default_rng(0)
@@ -63,18 +61,16 @@ def test_skew_falls_back_to_binned_when_rsell_vmem_bound_binds():
                              rng.uniform(-1, 1, 200).astype(np.float32))
     # slot_tile_bytes supplied (5 B/nnz, the real per-tile demand of a
     # 200-nnz matrix) so the BATCH branch (B x gather bytes vs dense)
-    # doesn't fire first — this test pins the skew branch's VMEM bound
+    # doesn't fire first — this test pins the skew branch
     stats = dict(density=1e-5, nnz=csr.nnz, empty_block_frac=0.0,
                  w_global=12, w_typical=8.0, slot_tile_bytes=5 * csr.nnz)
-    # batch=4 needs 9.4 MB of X/Y residency — inside the kernel's cap
-    assert wide_fits(n, n, 4)
-    f4 = auto_format(csr, expect_batch=4, stats=stats)
-    assert type(f4).__name__ == "RsellMatrix", type(f4).__name__
-    # batch=48 needs 113 MB — past the 96 MB cap, and the kernel itself
-    # would refuse; the route must agree with the kernel's own predicate
-    assert not wide_fits(n, n, 48)
+    for batch in (1, 4, 48):
+        assert route(n, n, stats, expect_batch=batch) == "rsell", batch
     f48 = auto_format(csr, expect_batch=48, stats=stats)
-    assert type(f48).__name__ == "BinnedSellMatrix", type(f48).__name__
+    assert type(f48).__name__ == "RsellMatrix", type(f48).__name__
+    # the flat-SELL padding branch (no column skew) goes to RSELL too
+    pad_stats = dict(stats, w_global=64, w_typical=64.0)
+    assert route(n, n, pad_stats, expect_batch=48) == "rsell"
 
 
 def test_structured_x_pref_is_awsp():
@@ -99,7 +95,8 @@ def test_batched_mid_density_is_asp():
 
 
 def test_batched_low_density_still_mxu_path():
-    """At B>=4 the gather floor loses at every density (BENCH.md)."""
+    """At B>=4 the gather cost per (slot, batch) element loses to dense
+    tiles at every density."""
     a = generators.random_sparse_matrix(512, 384, density=0.1, seed=10)
     f = auto_format(a, expect_batch=8)
     assert type(f).__name__ in ("AspMatrix", "TcsrMatrix")
@@ -107,8 +104,8 @@ def test_batched_low_density_still_mxu_path():
 
 def test_near_dense_never_routes_to_dia():
     # review r2: the widened banded-first rule admitted a 256^2 d=0.9
-    # matrix (511 diagonals, ~2x dense bytes over VPU streams); the
-    # dense-bytes ceiling must keep such matrices on the MXU path
+    # matrix (511 diagonals, ~2x dense bytes over shifted streams); the
+    # dense-bytes ceiling must keep such matrices on a dense path
     from tpusparse.formats.auto import auto_format
     from tpusparse.formats.dia import DiaMatrix
     from tpusparse.testing import generators
@@ -153,7 +150,7 @@ def test_predicted_bytes_quantum_floor():
 
 def test_scale_bench_cliff_guard():
     """The GB-scale bench records the quantum-floor law instead of
-    attempting a pack predicted past the HBM budget."""
+    attempting a pack predicted past the memory budget."""
     from tpusparse.bench import scale
 
     rec = scale.run(m=2048, density=0.002, quick=True, train=False,

@@ -16,7 +16,7 @@ def _run(args):
 
 
 def test_check_exit_code_reflects_results():
-    r = _run(["check", *_TINY, "--kernels", "dense_xla,sell_pallas"])
+    r = _run(["check", *_TINY, "--kernels", "dense_xla,sell"])
     assert r.returncode == 0, r.stderr[-500:]
     assert "OK" in r.stdout
 
@@ -59,7 +59,7 @@ def test_cli_mtx(tmp_path, capsys):
 def test_cli_mtx_fem_fixture(capsys):
     """The committed FEM MatrixMarket fixture (data/fem_mesh_16384.mtx)
     runs end-to-end: ingest -> stats -> route -> float64-oracle check.
-    The same file backs the BENCH.md mtx row."""
+    chip_smoke.py runs the same file on the card."""
     from pathlib import Path
 
     from tpusparse.cli import main
@@ -70,15 +70,6 @@ def test_cli_mtx_fem_fixture(capsys):
     assert main(["mtx", str(fixture), "--cpu", "--no-time"]) == 0
     out = capsys.readouterr().out
     assert "routed to" in out and "OK" in out
-
-
-def test_cli_tune_smoke(capsys):
-    from tpusparse.cli import main
-
-    assert main(["tune", "--m", "256", "--n", "256", "--density", "0.3",
-                 "--cpu", "--k1", "2", "--k2", "4", "--reps", "1"]) == 0
-    out = capsys.readouterr().out
-    assert "heuristic default" in out and "best" in out
 
 
 def test_cli_solve_smoke(capsys):

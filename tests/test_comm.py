@@ -7,7 +7,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from tpusparse.parallel import make_mesh
-from tpusparse.parallel.mesh import compat_shard_map
+from jax import shard_map as compat_shard_map
 from tpusparse.parallel.comm import (
     all_gather_x, psum_y, reduce_scatter_y, ring_shift)
 

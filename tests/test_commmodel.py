@@ -1,4 +1,4 @@
-"""The ICI comm model's assumptions vs the actually-lowered programs.
+"""The chip-to-chip comm model's assumptions vs the actually-lowered programs.
 
 The model (bench/commmodel.py) is analytic; what it must not be is
 fictional: each partition's claimed collective kind is asserted against the
@@ -66,14 +66,14 @@ def test_model_numbers():
     # n: perfect; m: comm does not shrink with D (full-width psum); ring:
     # overlapped — efficient once per-band compute >= chunk transfer
     en = comm_model("n", m=4096, n=4096, n_devices=8)
-    assert en.efficiency == 1.0 and en.ici_bytes == 0
+    assert en.efficiency == 1.0 and en.link_bytes == 0
     em = comm_model("m", m=4096, n=4096, n_devices=8)
-    assert em.ici_bytes == int(2 * 7 / 8 * 4096 * 4)
+    assert em.link_bytes == int(2 * 7 / 8 * 4096 * 4)
     assert 0 < em.efficiency < 1
     er = comm_model("ring", m=4096, n=4096, n_devices=8)
-    assert er.ici_bytes == 7 * 4096 * 4
-    # 64 MB slab / 819 GB/s / 8 bands = 10.2 us/band vs 16 KB chunk at
-    # 100 GB/s = 0.16 us: fully overlapped -> ~100%
+    assert er.link_bytes == 7 * 4096 * 4
+    # 64 MB slab / 3350 GB/s / 8 bands = 2.5 us/band vs 16 KB chunk at
+    # 450 GB/s = 0.04 us: fully overlapped -> ~100%
     assert er.efficiency > 0.95
     # batched ring eventually becomes comm-bound
     er_b = comm_model("ring", m=4096, n=4096, batch=512, n_devices=8)
@@ -120,7 +120,7 @@ def test_train_model_efficiency_shape():
     # comm is one small activation all-reduce against 4 format passes of
     # compute: efficiency stays high and degrades slowly with D
     assert e2.efficiency > 0.95 and e16.efficiency > 0.9
-    assert e16.ici_bytes > e2.ici_bytes
+    assert e16.link_bytes > e2.link_bytes
 
 
 def test_model_collectives_match_lowered_dia(mesh8):
@@ -145,15 +145,15 @@ def test_model_collectives_match_lowered_dia(mesh8):
             assert op in txt
         else:
             assert op not in txt
-    # halo ICI bytes are D- and slab-independent, tiny vs the slab
-    assert e.ici_bytes == (hl + hr) * 4
+    # halo link bytes are D- and slab-independent, tiny vs the slab
+    assert e.link_bytes == (hl + hr) * 4
     assert e.efficiency > 0.99
 
 
 def test_model_collectives_match_lowered_dia_sym(mesh8):
     # symmetric storage: ONE extra ppermute ships the k_half x dmax vals
     # edge strip (parallel/sparse.py mirror_local); collective kind is
-    # unchanged and the modeled ICI bytes stay bandwidth-proportional
+    # unchanged and the modeled link bytes stay bandwidth-proportional
     from tpusparse.formats.dia import DiaMatrix
     from tpusparse.parallel.sparse import dia_spmm_sharded
 
@@ -178,5 +178,5 @@ def test_model_collectives_match_lowered_dia_sym(mesh8):
     e = comm_model("halo", m=n, n=n, n_devices=8,
                    format_bytes=dm.device_bytes(), halo=2 * dmax,
                    vals_halo=len(dm.offsets) * dmax)
-    assert e.ici_bytes == (2 * dmax + len(dm.offsets) * dmax) * 4
+    assert e.link_bytes == (2 * dmax + len(dm.offsets) * dmax) * 4
     assert e.efficiency > 0.95   # toy 12 KB operator; grows with the slab

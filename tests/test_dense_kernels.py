@@ -1,9 +1,9 @@
-"""Dense baseline kernels vs the CPU oracle at the reference tolerance."""
+"""Dense baseline vs the CPU oracle at the reference tolerance."""
 
 import numpy as np
 
 from tests.conftest import assert_close
-from tpusparse.kernels.dense import dense_pallas, dense_xla
+from tpusparse.kernels.dense import dense_xla
 from tpusparse.testing import generators, reference
 from tpusparse.testing.tester import KernelEntry, SpmvTester
 from tpusparse.config import SpmvConfig
@@ -14,26 +14,11 @@ def test_dense_xla(small_workload):
     assert_close(dense_xla(a, x), y_ref, name="dense_xla")
 
 
-def test_dense_pallas(small_workload):
-    a, x, y_ref = small_workload
-    y = dense_pallas(a, x, block_m=128, block_n=128)
-    assert_close(y, y_ref, name="dense_pallas")
-
-
-def test_dense_pallas_uneven_blocks(small_workload):
-    a, x, y_ref = small_workload
-    # block larger than the array in one dim; grid cdiv handles the rest
-    y = dense_pallas(a, x, block_m=512, block_n=128)
-    assert_close(y, y_ref, name="dense_pallas_big_block")
-
-
 def test_dense_spmm():
     a = generators.random_sparse_matrix(256, 256, density=0.5, seed=11)
     x = generators.random_sparse_batch(8, 256, density=0.5, seed=11)
     y_ref = reference.sgemm_cpu(x, a)
     assert_close(dense_xla(a, x), y_ref, name="dense_xla_spmm")
-    assert_close(dense_pallas(a, x, block_m=128, block_n=128), y_ref,
-                 name="dense_pallas_spmm")
 
 
 def test_tester_harness():
@@ -41,11 +26,13 @@ def test_tester_harness():
     t = SpmvTester(cfg)
     t.register(KernelEntry("dense_xla", prepare=lambda a: a,
                            run=lambda fmt, x: dense_xla(fmt, x)))
-    t.register(KernelEntry("dense_pallas", prepare=lambda a: a,
-                           run=lambda fmt, x: dense_pallas(fmt, x, block_m=128, block_n=128)))
+    from tpusparse.formats.sell import SellMatrix
+
+    t.register(KernelEntry("sell", prepare=SellMatrix.from_dense,
+                           run=lambda fmt, x: fmt.spmv(x)))
     reports = t.run(verbose=False)
     assert all(r.ok for r in reports)
-    assert [r.name for r in reports] == ["dense_xla", "dense_pallas"]
+    assert [r.name for r in reports] == ["dense_xla", "sell"]
 
 
 def test_tester_catches_bad_kernel():
@@ -62,13 +49,3 @@ def test_tester_catches_bad_kernel():
         pass
     else:
         raise AssertionError("tester.run should raise on mismatch")
-
-
-def test_dense_pallas_non_multiple_shapes():
-    """cdiv grids must zero-pad the tails, not read out of bounds."""
-    a = generators.random_sparse_matrix(768, 1000, density=0.5, seed=41)
-    x = generators.random_sparse_vector(768, density=0.5, seed=41)
-    from tpusparse.kernels.dense import dense_pallas
-
-    assert_close(dense_pallas(a, x), reference.sgemv_cpu(x, a),
-                 name="dense_pallas_768x1000")

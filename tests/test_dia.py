@@ -114,7 +114,7 @@ def test_empty_matrix():
 
 
 def test_cg_on_dia_laplacian():
-    """The solver workload that motivated the format (BENCH.md §Solver)."""
+    """The solver workload that motivated the format (a 2-D Laplacian)."""
     from tests.test_solve import _laplacian_2d
     from tpusparse.formats.auto import auto_format
     from tpusparse.solve import cg

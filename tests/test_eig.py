@@ -30,6 +30,9 @@ def test_lanczos_basis_orthonormal(spd256):
     a, _ = spd256
     t, v = lanczos(jnp.asarray(a).__matmul__, 24, n=256)
     g = np.asarray(v) @ np.asarray(v).T
+    # 1e-4: fp32 CGS2 loses ~sqrt(n) ulps per vector; the projections run
+    # at HIGHEST precision (eig._hdot), so a GPU's TF32 (~1e-3 per
+    # product) never enters
     np.testing.assert_allclose(g, np.eye(24), atol=1e-4)
     # t is the projection V A Vt
     t_ref = np.asarray(v) @ a @ np.asarray(v).T

@@ -8,7 +8,6 @@ matrix exactly (values are copied, not computed).
 import numpy as np
 import pytest
 
-from tpusparse.formats.bell import BellMatrix, bell_pack
 from tpusparse.formats.csr import CsrMatrix
 from tpusparse.formats.ell import EllMatrix
 from tpusparse.testing import generators, reference
@@ -49,34 +48,6 @@ def test_ell_roundtrip(dense):
     assert e.val.shape[1] % 8 == 0
 
 
-def test_bell_roundtrip(dense):
-    b = BellMatrix.from_dense(dense, block_m=128)
-    np.testing.assert_array_equal(b.to_dense(), dense)
-    assert b.w % 128 == 0
-    assert b.vals.shape[2] == 128
-
-
-def test_bell_roundtrip_unaligned():
-    # M=200, N=250: both need padding (M -> 256, N -> 384 at block_m=256)
-    a = generators.random_sparse_matrix(200, 256, density=0.3, seed=3)
-    a = a[:, :250]
-    b = BellMatrix.from_dense(a.copy(), block_m=256)
-    np.testing.assert_array_equal(b.to_dense(), a)
-
-
-def test_bell_w_too_small_raises(dense):
-    with pytest.raises(ValueError):
-        bell_pack(np.ones((256, 256), np.float32), block_m=256, w=128)
-
-
-def test_bell_compression_accounting():
-    a = generators.random_sparse_matrix(1024, 256, density=0.1, seed=9)
-    b = BellMatrix.from_dense(a, block_m=1024)
-    dense_bytes = a.size * 4
-    assert b.device_bytes() < 0.5 * dense_bytes, (
-        f"10% density should compress >2x, got {b.device_bytes()/dense_bytes:.2f}")
-
-
 def test_sell_roundtrip(dense):
     from tpusparse.formats.sell import SellMatrix
 
@@ -113,12 +84,11 @@ def test_bsr_from_blocks():
     assert (d[:, 0:128] == 0).all()
 
 
-@pytest.mark.parametrize("kind", ["sell", "bell", "bsr", "awsp", "binned",
+@pytest.mark.parametrize("kind", ["sell", "awsp_g1", "bsr", "awsp", "binned",
                                   "asp", "tcsr", "tcsr_mixed", "rsell"])
 def test_format_save_load(tmp_path, dense, kind):
     from tpusparse.formats import io
     from tpusparse.formats.awsp import AwspMatrix
-    from tpusparse.formats.bell import BellMatrix
     from tpusparse.formats.binned import BinnedSellMatrix
     from tpusparse.formats.bsr import BsrMatrix
     from tpusparse.formats.rsell import RsellMatrix
@@ -127,7 +97,7 @@ def test_format_save_load(tmp_path, dense, kind):
     from tpusparse.kernels.asp_spmv import AspMatrix
 
     fmt = {"sell": lambda: SellMatrix.from_dense(dense),
-           "bell": lambda: BellMatrix.from_dense(dense, block_m=128),
+           "awsp_g1": lambda: AwspMatrix.from_dense(dense),
            "bsr": lambda: BsrMatrix.from_dense(dense, block_m=128),
            "awsp": lambda: AwspMatrix.from_dense(dense, g=2),
            "binned": lambda: BinnedSellMatrix.from_dense(dense),
@@ -239,7 +209,7 @@ def test_load_leaf_count_guard(tmp_path):
 
 def test_load_dict_meta_guard(tmp_path):
     # pre-r2 files stored meta as a dict repr; tree_unflatten would unpack
-    # its KEYS positionally and silently build a corrupt object (ADVICE r1)
+    # its KEYS positionally and silently build a corrupt object
     from tpusparse.formats import io
     from tpusparse.formats.sell import SellMatrix
 

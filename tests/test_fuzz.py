@@ -7,7 +7,7 @@ import pytest
 from tests.conftest import assert_close
 from tpusparse.testing import generators, reference
 
-_FORMATS = ["sell", "awsp", "bsr", "ell", "bell", "binned", "asp"]
+_FORMATS = ["sell", "awsp", "bsr", "ell", "rsell", "binned", "asp"]
 
 
 def _pack(name, a):
@@ -27,10 +27,10 @@ def _pack(name, a):
         from tpusparse.formats.ell import EllMatrix
 
         return EllMatrix.from_dense(a)
-    if name == "bell":
-        from tpusparse.formats.bell import BellMatrix
+    if name == "rsell":
+        from tpusparse.formats.rsell import RsellMatrix
 
-        return BellMatrix.from_dense(a, block_m=128)
+        return RsellMatrix.from_dense(a)
     if name == "binned":
         from tpusparse.formats.binned import BinnedSellMatrix
 

@@ -76,9 +76,9 @@ def test_route_batch_uses_routed_bytes_not_flat_sell():
 
 
 def test_route_batch_win_region():
-    """The measured SpMM win-region picks (BENCH.md §SpMM-wins): banded ->
-    DIA at every batch (B-independent shifted streams); block-pruned ->
-    TCSR, whose tier model goes all-dense-tier (MXU, B-independent) as B
+    """The SpMM win-region picks: banded -> DIA at every batch
+    (B-independent shifted streams); block-pruned -> TCSR, whose tier
+    model goes all-dense-tier (one matrix product, B-independent) as B
     grows; N:M-pruned -> dense tiles + activation skip at batch."""
     st = generators.stencil_csr((64, 64))
     for b in (1, 8, 32):
@@ -135,7 +135,7 @@ def test_every_workload_is_buildable_and_routes():
 
 
 def test_scale_train_gate_records_sizing_law():
-    """bench.scale pre-sizes the train stage (VERDICT r4 item 4): when
+    """bench.scale pre-sizes the train stage: when
     twins + grads + the uploaded pack (5x format bytes) exceed the
     operand budget, the record carries a train_gate law naming the
     sharded path instead of a raw RESOURCE_EXHAUSTED."""

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from tests.conftest import assert_close
 from tpusparse.testing import generators, reference
 
-_FMT = ["sell", "awsp", "bsr", "bell", "binned", "ell", "asp", "tcsr",
+_FMT = ["sell", "awsp", "bsr", "bsr_bm64", "binned", "ell", "asp", "tcsr",
         "tcsr_dense_tier", "rsell", "dia"]
 
 
@@ -30,10 +30,10 @@ def _pack(name, a):
         from tpusparse.formats.bsr import BsrMatrix
 
         return BsrMatrix.from_dense(a, block_m=128)
-    if name == "bell":
-        from tpusparse.formats.bell import BellMatrix
+    if name == "bsr_bm64":
+        from tpusparse.formats.bsr import BsrMatrix
 
-        return BellMatrix.from_dense(a, block_m=128)
+        return BsrMatrix.from_dense(a, block_m=64)
     if name == "binned":
         from tpusparse.formats.binned import BinnedSellMatrix
 
@@ -81,11 +81,11 @@ def test_spmv_under_jit(fmt):
 
 
 def test_awsp_dynamic_device_plan_under_jit():
-    """VERDICT r2 missing #1 closed: jitting over abstract activations now
-    takes the DEVICE-side dynamic-skip path (plan + active count computed
-    on device, Mosaic dynamic grid bound) — exact results for any
-    activation pattern, one compile, no host round-trip. A precomputed
-    static plan is still accepted and exact."""
+    """Jitting over abstract activations takes the DEVICE-side
+    dynamic-skip path (plan computed on device, padded with the zero
+    group) — exact results for any activation pattern, one compile, no
+    host round-trip. A precomputed static plan is still accepted and
+    exact."""
     from tpusparse.formats.awsp import AwspMatrix
 
     a = generators.random_sparse_matrix(512, 256, density=0.3, seed=88)
@@ -144,11 +144,11 @@ def test_device_group_plan_compaction():
     x = np.zeros((1, 8 * 128), np.float32)
     x[0, 3 * 128 + 5] = 1.0
     x[0, 6 * 128 + 7] = 2.0
-    plan, k = device_group_plan(jnp.asarray(x), 8, 128)
-    assert int(k) == 2
+    plan = device_group_plan(jnp.asarray(x), 8, 128)
+    assert plan.shape == (8,)
     assert list(np.asarray(plan)[:2]) == [3, 6]
     assert (np.asarray(plan)[2:] == 8).all()    # tail points at zero group
-    plan0, k0 = device_group_plan(jnp.zeros((1, 8 * 128)), 8, 128)
-    assert int(k0) == 1 and int(np.asarray(plan0)[0]) == 8
+    plan0 = device_group_plan(jnp.zeros((1, 8 * 128)), 8, 128)
+    assert (np.asarray(plan0) == 8).all()
 
 

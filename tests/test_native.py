@@ -4,7 +4,6 @@ import numpy as np
 import pytest
 
 from tpusparse import native
-from tpusparse.formats.bell import _mask_to_words
 from tpusparse.formats.csr import CsrMatrix
 from tpusparse.formats.sell import sell_pack
 from tpusparse.testing import generators
@@ -32,15 +31,6 @@ def test_csr_native_matches_numpy(dense):
     np.testing.assert_array_equal(nat.row_ptr, ref.row_ptr)
     np.testing.assert_array_equal(nat.col_idx, ref.col_idx)
     np.testing.assert_array_equal(nat.values, ref.values)
-
-
-def test_bell_bitmap_native_matches_numpy(dense):
-    block_m = 256
-    mp = 512
-    t = dense.reshape(mp // block_m, block_m, 3, 128).transpose(2, 0, 3, 1)
-    ref = _mask_to_words(t != 0, block_m)
-    nat = native.bell_bitmap(dense, block_m)
-    np.testing.assert_array_equal(nat, ref)
 
 
 def test_native_speedup_smoke():

@@ -1,6 +1,6 @@
 """No-densify ingestion: every format packs from CsrMatrix, the router works
 on CsrMatrix, and a matrix far too large to materialize densely is routed and
-multiplied without any (m, n) host allocation (VERDICT r1 missing #5)."""
+multiplied without any (m, n) host allocation."""
 
 import tracemalloc
 
@@ -9,7 +9,6 @@ import pytest
 
 from tests.conftest import assert_close
 from tpusparse.formats.auto import auto_format, matrix_stats, matrix_stats_csr
-from tpusparse.formats.bell import BellMatrix
 from tpusparse.formats.binned import BinnedSellMatrix
 from tpusparse.formats.bsr import BsrMatrix
 from tpusparse.formats.csr import CsrMatrix, col_window_widths, csr_rows_subset
@@ -32,7 +31,7 @@ def test_from_csr_matches_from_dense(dist, density):
     a = generators.random_sparse_matrix(320, 256, density=density, seed=11,
                                         distribution=dist)
     c = CsrMatrix.from_dense(a)
-    for cls, kw in [(BsrMatrix, {}), (BellMatrix, dict(block_m=128)),
+    for cls, kw in [(BsrMatrix, {}), (BsrMatrix, dict(block_m=64)),
                     (BinnedSellMatrix, {})]:
         f_dense = cls.from_dense(a, **kw)
         f_csr = cls.from_csr(c, **kw)
@@ -113,7 +112,7 @@ def test_random_sparse_csr_seeded_and_sorted():
 
 
 def test_large_no_densify_route_and_multiply():
-    """The VERDICT r1 'done' gate, scaled to what CPU interpret mode can run
+    """The no-densify gate, scaled to what a CPU run can do
     in-suite: 8192^2 would be 268 MB dense (+ a 67 MB bool mask for any
     densifying step); the tracemalloc ceiling of 180 MB proves no step
     materialized (m, n) host memory. The 50k x 50k case differs only by

@@ -92,7 +92,7 @@ def test_sharded_block_amg_1d_chain():
 
 
 def test_sharded_amg_rejects_packed_carriers():
-    # greedy hierarchies hold Pallas carriers GSPMD cannot split
+    # greedy hierarchies hold packed carriers GSPMD placement cannot split
     a = _laplacian_2d(64)
     amg = smoothed_aggregation(CsrMatrix.from_scipy(a))
     assert amg.levels[0].kind == "packed"

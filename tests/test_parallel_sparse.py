@@ -64,7 +64,7 @@ def test_bsr_sharded_spmm_uneven_blocks(mesh8):
 
 def test_sell_sharded_indivisible_pads(mesh8, workload):
     # 15 groups over 8 devices: handled by automatic zero-group padding
-    # (r1 raised ValueError here; VERDICT r1 #3 asked for padding)
+    # (an earlier version raised ValueError here)
     a, x, _ = workload
     s = SellMatrix.from_dense(a[:, :1920])
     assert_close(sell_spmm_sharded(s, x, mesh8, "n"),
@@ -115,7 +115,7 @@ def test_sell_sharded_ring():
 
 @pytest.mark.parametrize("partition", ["n", "m", "ring"])
 def test_sell_sharded_non_divisible(mesh8, partition):
-    """Divisibility is handled by automatic zero padding (VERDICT r1 #3):
+    """Divisibility is handled by automatic zero padding:
     nb=7 groups, nt=5 windows over 8 devices."""
     a = generators.random_sparse_matrix(640, 896, density=0.3, seed=41)
     x = generators.random_sparse_vector(640, density=0.5, seed=41)

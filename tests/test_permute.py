@@ -1,4 +1,4 @@
-"""Static column-permutation Pallas kernel (kernels/permute.py)."""
+"""Static column permutation (kernels/permute.py)."""
 
 import numpy as np
 import pytest

@@ -1,7 +1,4 @@
-"""RSELL (ragged SELL, per-tile widths) + ragged sharding (VERDICT r1
-missing #3 'done' gate: powerlaw d=0.25 over 8 virtual devices, per-shard
-width spread >= 2x, max|err| <= 1e-3, load-balance stat, no divisibility
-errors)."""
+"""RSELL (ragged SELL, per-tile widths) + ragged sharding."""
 
 import numpy as np
 import pytest
@@ -135,75 +132,12 @@ def test_rsell_sharded_contiguous():
                  name="rsell sharded contiguous b=3")
 
 
-def test_smem_plan_segmenting(monkeypatch):
-    """GB-scale packs overflow the 1 MB SMEM scalar-prefetch budget (the
-    r4 65536^2 run: 283k chunks x int32 failed to compile); past the cap
-    the kernel splits the chunk stream and sums partial outputs.
-
-    ADVICE r4 medium: the first version of this test patched the cap
-    AFTER a warm call, so the second spmv hit the jax.jit cache and the
-    multi-segment branch never executed. Now: the cap and an explicit
-    small ``chunks_per_step`` are fixed BEFORE the only kernel call (a
-    fresh static arg keys a fresh trace), and the test counts
-    ``pallas_call`` invocations at trace time to PROVE the expected
-    number of segments actually launched."""
-    import tpusparse.kernels.rsell_spmv as K
-    from tpusparse.formats.rsell import RsellMatrix
-    from tpusparse.testing import generators, reference
-
-    a = generators.random_sparse_matrix(512, 384, density=0.15, seed=9,
-                                        distribution="powerlaw")
-    f = RsellMatrix.from_dense(a)
-    x = generators.random_sparse_vector(512, density=0.5, seed=9)
-    y_ref = reference.sgemv_cpu(x, a)
-
-    nchunk = int(f.cj.shape[0])
-    cps = 4
-    assert nchunk % cps == 0 and nchunk // cps >= 3, nchunk
-    mp, np_ = f.padded
-    x2d = jnp.pad(jnp.asarray(x)[None, :], ((0, 0), (0, mp - x.shape[0])))
-
-    def post(out):
-        # same post-processing as RsellMatrix._run (unpermute demand sort)
-        y = out[::8][:1]
-        if f.perm_plan is not None:
-            from tpusparse.kernels.permute import apply_permutation
-            y = apply_permutation(y, f.perm_plan, f.shape[1])
-        return np.asarray(y)[0][:384]
-
-    monkeypatch.setattr(K, "_SMEM_PLAN_CHUNKS", cps)  # 1 step per segment
-    calls = []
-    orig = K.pl.pallas_call
-
-    def counting(*args, **kw):
-        calls.append(1)
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(K.pl, "pallas_call", counting)
-    out_seg = K.rsell_spmm_padded(f.cj, f.ct, f.idx, f.vals, x2d,
-                                  n_padded=np_, chunks_per_step=cps)
-    # count BEFORE post(): apply_permutation adds its own pallas_call
-    assert len(calls) == nchunk // cps, (len(calls), nchunk, cps)
-    y_seg = post(out_seg)
-    # unsegmented baseline at the SAME kernel config (run/cps): the jit
-    # cache keys only on static args, so the cap change needs an explicit
-    # cache clear to re-trace with one segment
-    K.rsell_spmm_padded.clear_cache()
-    monkeypatch.setattr(K, "_SMEM_PLAN_CHUNKS", 192_000)
-    y_one = post(K.rsell_spmm_padded(f.cj, f.ct, f.idx, f.vals, x2d,
-                                     n_padded=np_, chunks_per_step=cps))
-    np.testing.assert_allclose(y_seg, y_ref, atol=1e-3)
-    np.testing.assert_allclose(y_seg, y_one, atol=1e-5)
-
-
 def test_run_alignment_property_and_gate():
-    """r5 run-aligned packs (VERDICT r4 item 2): when per-group padding
-    stays under the 5% gate, every 8-chunk sub-block of the stream shares
-    one cj (the kernel's run body relies on it: one dynamic output RMW
-    per run), pad chunks carry the group's cj with zero vals, and the
-    spmv matches the oracle. Packs whose group padding would exceed the
-    20%% gate (mesh2d-like: many 1-3 chunk groups) must REFUSE alignment
-    and stay flat."""
+    """Run-aligned packs: when per-group padding stays under the 20% gate,
+    every 8-chunk sub-block of the stream shares one cj, pad chunks carry
+    the group's cj with zero vals, and the spmv matches the oracle. Packs
+    whose group padding would exceed the gate (many 1-3 chunk groups)
+    must REFUSE alignment and stay flat."""
     from tpusparse.formats.rsell import _RUN
 
     # dense-ish groups -> tiny pad fraction -> aligned
@@ -218,7 +152,7 @@ def test_run_alignment_property_and_gate():
     x = generators.random_sparse_vector(1024, density=0.5, seed=5)
     assert_close(f.spmv(x), reference.sgemv_cpu(x, a), name="rsell run=8")
 
-    # many 1-3 chunk groups -> pad > 5% -> flat body keeps the bytes
+    # many 1-3 chunk groups -> pad past the gate -> flat pack
     b = generators.random_sparse_matrix(256, 2048, density=0.01, seed=6)
     g = RsellMatrix.from_dense(b)
     assert g.run == 1, g.run

@@ -4,7 +4,6 @@ import numpy as np
 import pytest
 
 from tests.conftest import assert_close
-from tpusparse.formats.bell import BellMatrix
 from tpusparse.formats.ell import EllMatrix
 from tpusparse.testing import generators, reference
 
@@ -29,44 +28,14 @@ def test_ell_spmm(workload):
     assert_close(EllMatrix.from_dense(a).spmm(xb), y_ref, name="ell_spmm")
 
 
-@pytest.mark.parametrize("block_m", [128, 256, 512])
-def test_bell_spmv(workload, block_m):
-    a, x, y_ref = workload
-    b = BellMatrix.from_dense(a, block_m=block_m)
-    assert_close(b.spmv(x), y_ref, name=f"bell_spmv[bm={block_m}]")
-
-
-def test_bell_spmm(workload):
-    a, x, _ = workload
-    xb = generators.random_sparse_batch(8, 512, density=0.5, seed=23)
-    y_ref = reference.sgemm_cpu(xb, a)
-    b = BellMatrix.from_dense(a, block_m=256)
-    assert_close(b.spmm(xb), y_ref, name="bell_spmm")
-
-
-def test_bell_dense_matrix():
-    # fully dense A: w == block_m, format degenerates to dense + bitmap
-    a = np.random.default_rng(0).uniform(-1, 1, (256, 128)).astype(np.float32)
-    x = generators.random_sparse_vector(256, density=0.5, seed=1)
-    b = BellMatrix.from_dense(a, block_m=256)
-    assert b.w == 256
-    assert_close(b.spmv(x), reference.sgemv_cpu(x, a), name="bell_dense")
-
-
-def test_bell_empty_matrix():
-    a = np.zeros((256, 128), np.float32)
-    x = generators.random_sparse_vector(256, density=0.5, seed=1)
-    b = BellMatrix.from_dense(a, block_m=256)
-    y = np.asarray(b.spmv(x))
-    np.testing.assert_array_equal(y, np.zeros(128, np.float32))
-
-
 def test_ops_dispatch(workload):
     from tpusparse import spmv
 
     a, x, y_ref = workload
-    assert_close(spmv(BellMatrix.from_dense(a, block_m=256), x), y_ref,
-                 name="ops.spmv[bell]")
+    from tpusparse.formats.sell import SellMatrix
+
+    assert_close(spmv(SellMatrix.from_dense(a), x), y_ref,
+                 name="ops.spmv[sell]")
 
 
 def test_sell_spmv(workload):
@@ -85,19 +54,6 @@ def test_sell_spmm(workload):
     xb = generators.random_sparse_batch(3, 512, density=0.5, seed=24)
     y_ref = reference.sgemm_cpu(xb, a)
     assert_close(SellMatrix.from_dense(a).spmm(xb), y_ref, name="sell_spmm")
-
-
-def test_sell_window_step_degrade(workload):
-    # nt=4 at M=512; windows_per_step must degrade from 16 to 4 cleanly
-    from tpusparse.formats.sell import SellMatrix
-    from tpusparse.kernels.sell_spmv import sell_spmm_padded
-
-    a, x, y_ref = workload
-    s = SellMatrix.from_dense(a)
-    import jax.numpy as jnp
-    out = sell_spmm_padded(s.idx, s.vals, jnp.asarray(x)[None, :], w=s.w,
-                           windows_per_step=16)
-    assert_close(out[0, :a.shape[1]], y_ref, name="sell_degrade")
 
 
 def test_bsr_spmv_blocks():
@@ -178,64 +134,6 @@ def test_sell_bf16_storage(workload):
     s = SellMatrix.from_dense(a, dtype=jnp.bfloat16)
     assert np.dtype(s.vals.dtype).itemsize == 2
     assert_close(s.spmv(x), y_ref, atol=5e-2, name="sell_bf16")
-
-
-def test_sell_mxu_spmm_matches_oracle():
-    """The decompress-to-dense study kernel (kernels/sell_mxu_spmm.py) —
-    covered here so the additive-scatter invariant (pad slots alias offset
-    0 and must ADD zero, not overwrite) can't regress silently."""
-    import jax.numpy as jnp
-
-    from tpusparse.formats.sell import SellMatrix
-    from tpusparse.kernels.sell_mxu_spmm import sell_mxu_spmm_padded
-
-    a = generators.random_sparse_matrix(384, 256, density=0.2, seed=61)
-    a[0, :] = 1.0          # guarantee c=0 entries (slot-0/pad collision bait)
-    s = SellMatrix.from_dense(a)
-    for b in (1, 3, 8):
-        xb = generators.random_sparse_batch(b, 384, density=0.5, seed=61)
-        y = np.asarray(sell_mxu_spmm_padded(
-            s.idx, s.vals, jnp.asarray(xb), w=s.w))[:b, :256]
-        y_ref = np.stack([reference.sgemv_cpu(xb[i], a) for i in range(b)])
-        assert_close(y, y_ref, name=f"sell_mxu b={b}")
-
-
-def test_bsell_scan_path(monkeypatch):
-    """Force the TCSR sell tier through the bsell SCAN shape (the huge-N*B
-    fallback with first-visit output init) by shrinking the wide-path VMEM
-    budget to zero."""
-    from tpusparse.formats.tcsr import TcsrMatrix
-    from tpusparse.kernels import bsell_spmv
-
-    from tests.test_tcsr import _blocks_matrix
-
-    monkeypatch.setattr(bsell_spmv, "_WIDE_VMEM_LIMIT", 0)
-    a = _blocks_matrix(0.4, seed=63)          # partial fill -> SELL tier
-    f = TcsrMatrix.from_dense(a)
-    assert f.n_sell > 0
-    x = generators.random_sparse_vector(a.shape[0], density=0.5, seed=63)
-    assert_close(f.spmv(x), reference.sgemv_cpu(x, a), name="bsell scan")
-    xb = generators.random_sparse_batch(2, a.shape[0], density=0.5, seed=63)
-    y_ref = np.stack([reference.sgemv_cpu(xb[i], a) for i in range(2)])
-    assert_close(f.spmm(xb), y_ref, name="bsell scan spmm")
-
-
-def test_rsell_vmem_guard(monkeypatch):
-    # past the comfort zone but under the cap: runs with a raised
-    # per-kernel vmem limit; past the hard cap: refuses
-    from tpusparse.formats.rsell import RsellMatrix
-    from tpusparse.kernels import rsell_spmv
-
-    a = generators.random_sparse_matrix(256, 256, density=0.2, seed=65)
-    x = generators.random_sparse_vector(256, density=0.5, seed=65)
-    f = RsellMatrix.from_dense(a)
-    monkeypatch.setattr(rsell_spmv, "_WIDE_VMEM_LIMIT", 0)
-    assert_close(f.spmv(x), reference.sgemv_cpu(x, a), name="rsell raised")
-    monkeypatch.setattr(rsell_spmv, "_WIDE_VMEM_CAP", 0)
-    a2 = generators.random_sparse_matrix(384, 384, density=0.2, seed=66)
-    with pytest.raises(ValueError, match="VMEM"):   # fresh shape: no jit cache
-        RsellMatrix.from_dense(a2).spmv(
-            generators.random_sparse_vector(384, density=0.5, seed=66))
 
 
 def test_sell_int8_storage(workload):

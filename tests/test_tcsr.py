@@ -1,6 +1,6 @@
 """TCSR two-tier format: intra-block compression parity with the reference's
 TCSRMatrix (tcsr.cpp:13-34) — bytes ∝ in-block nnz on partially-filled
-blocks (VERDICT r1 missing #2 'done' gate)."""
+blocks."""
 
 import numpy as np
 import pytest

@@ -1,25 +1,25 @@
-"""tpusparse — a TPU-native sparse SpMV/SpMM library.
+"""tpusparse — a sparse SpMV/SpMM library in JAX for NVIDIA GPUs.
 
-A from-scratch JAX/Pallas re-imagination of the capability surface of the
-reference CUDA study ``PACTHEMAN123/spMV-test`` (see SURVEY.md): the operation
-is ``Y = X @ A`` with ``X: (M,)`` or ``(B, M)``, ``A: (M, N)`` sparse, fp32 by
+A from-scratch re-design of the capability surface of the reference CUDA
+study ``PACTHEMAN123/spMV-test`` (see SURVEY.md): the operation is
+``Y = X @ A`` with ``X: (M,)`` or ``(B, M)``, ``A: (M, N)`` sparse, fp32 by
 default (reference README.md:29-36, test/main.cpp:4).
 
-Layers (SURVEY.md §1 "TPU mapping"):
+Layers:
 
 - ``tpusparse.formats``   — host-side converters (CSR/COO ingestion, ELL,
-  bitmap blocked-ELL, BSR block-sparse, binned scheduling), replacing the
+  SELL, BSR block-sparse, binned scheduling, ...), replacing the
   reference's C++ converter classes (matrix_csr.cpp, wsp.cpp, awsp.cpp, ...).
-- ``tpusparse.kernels``   — Pallas TPU kernels + XLA baselines, replacing the
-  14 CUDA kernels (naive.cu, wsp.cu, asp.cu, awsp.cu, awsp_ref.cu, ...).
+- ``tpusparse.kernels``   — the device products (plain XLA forms),
+  replacing the 14 CUDA kernels (naive.cu, wsp.cu, asp.cu, awsp.cu,
+  awsp_ref.cu, ...).
 - ``tpusparse.ops``       — the public dispatch surface (spmv / spmm).
 - ``tpusparse.autodiff``  — differentiable ``y = x @ A`` (custom VJP via a
   transpose-packed format; no reference counterpart — JAX-native value).
-- ``tpusparse.tune``      — step-geometry heuristic + on-device autotuner.
 - ``tpusparse.parallel``  — mesh / collectives / partitioned multi-chip SpMV
-  (no reference counterpart; mandated by BASELINE.json north star).
+  (no reference counterpart).
 - ``tpusparse.prune``     — dense->sparse pruning strategies (magnitude,
-  N:M structured, block) shaped by what the TPU kernels reward.
+  N:M structured, block) shaped by what the packed formats reward.
 - ``tpusparse.nn``        — Flax layer (``SparseLinear``) over the trainable
   twin-layout path.
 - ``tpusparse.reorder``   — RCM bandwidth reduction (scrambled bands -> DIA routing)

@@ -1,12 +1,12 @@
-"""Real-TPU 1-device-mesh overhead check (VERDICT r2 item 6).
+"""1-device-mesh overhead check on the card.
 
-One pooled chip cannot measure multi-chip scaling, but it CAN ground the
+One card cannot measure multi-card scaling, but it CAN ground the
 comm model's compute-side inputs: run the SHARDED code paths (shard_map
 lowering, specs, padding, reassembly) on a 1-device mesh and assert the
 per-call device time matches the unsharded kernel within the documented
 contention jitter. Any systematic shard_map overhead would poison every
-row of the analytic ICI model (bench/commmodel.py); this is the only
-hardware grounding a single chip can produce.
+row of the analytic comm model (bench/commmodel.py); this is the only
+hardware grounding a single card can produce.
 
 Covers the three carrier families the model leans on: SELL (flagship
 n-partition), DIA (stencil halo), TCSR (tiered n-partition).
@@ -78,7 +78,7 @@ def run(quick: bool = False, verbose: bool = True) -> dict[str, Any]:
         lambda f, xx: dia_spmm_sharded(f, xx, mesh, "halo"),
         xd, format_bytes(d), c.nnz, quick, verbose)
 
-    # TCSR on the 35%-tiles / 40%-fill blocks workload (BENCH.md §TCSR)
+    # TCSR on the 35%-tiles / 40%-fill blocks workload ()
     rng = np.random.default_rng(7)
     keep = rng.random((m // 128, n // 128)) < 0.35
     keep.flat[0] = True
@@ -108,7 +108,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--quick", action="store_true")
-    p.add_argument("--json", default="BENCH_overhead.json")
+    p.add_argument("--json", default=None,
+                   help="write the record to this JSON file")
     args = p.parse_args(argv)
     rec = run(quick=args.quick)
     if args.json:

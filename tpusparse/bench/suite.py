@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from tpusparse.bench.roofline import detect_hbm_gbps, format_bytes, roofline_fraction
+from tpusparse.bench.roofline import format_bytes, roofline_fraction
 from tpusparse.bench.runner import BenchResult, device_time
 from tpusparse.config import SpmvConfig
 from tpusparse.testing import generators
@@ -27,7 +27,7 @@ def registry(full: bool = True) -> list[dict[str, Any]]:
     The reference hard-coded its registry (tester.cpp:54-63); this one is
     selectable (see cli.py --kernels).
     """
-    from tpusparse.kernels.dense import dense_pallas, dense_xla
+    from tpusparse.kernels.dense import dense_xla
 
     def fmt_run(f, x):
         return f.spmv(x) if x.ndim == 1 else f.spmm(x)
@@ -42,31 +42,27 @@ def registry(full: bool = True) -> list[dict[str, Any]]:
     entries = [
         dict(name="dense_xla", prepare=lambda a: a,
              run=lambda f, x: dense_xla(f, x)),
-        dict(name="dense_pallas", prepare=lambda a: a,
-             run=lambda f, x: dense_pallas(f, x)),
     ]
     from tpusparse.formats.sell import SellMatrix
 
     entries.append(dict(
-        name="sell_pallas",
+        name="sell",
         prepare=lambda a: SellMatrix.from_dense(a),
         run=fmt_run,
     ))
     from tpusparse.formats.awsp import AwspMatrix
 
     entries.append(dict(
-        name="awsp_pallas",
+        name="awsp",
         # g=8 pinned: the canonical workload is static full-live X, where
-        # coarser skip groups buy DMA-step amortization (the r2-measured
-        # geometry this headline was tuned at). The format's g=1 DEFAULT
-        # targets dynamic serving (BENCH.md §dynamic, r5 floor study).
+        # coarser skip groups mean fewer plan entries. The format's g=1
+        # DEFAULT targets dynamic serving.
         prepare=lambda a: AwspMatrix.from_dense(a, g=8),
         run=full_plan_run,
     ))
     if not full:
         return entries
 
-    from tpusparse.formats.bell import BellMatrix
     from tpusparse.formats.binned import BinnedSellMatrix
     from tpusparse.formats.bsr import BsrMatrix
     from tpusparse.formats.ell import EllMatrix
@@ -78,22 +74,19 @@ def registry(full: bool = True) -> list[dict[str, Any]]:
         dict(name="ell_xla",
              prepare=lambda a: EllMatrix.from_dense(a),
              run=fmt_run),
-        dict(name="bell_pallas",
-             prepare=lambda a: BellMatrix.from_dense(a),
-             run=fmt_run),
-        dict(name="sell_binned_pallas",
+        dict(name="sell_binned",
              prepare=lambda a: BinnedSellMatrix.from_dense(a),
              run=fmt_run),
-        dict(name="bsr_pallas",
+        dict(name="bsr",
              prepare=lambda a: BsrMatrix.from_dense(a, block_m=512),
              run=fmt_run),
-        dict(name="tcsr_pallas",
+        dict(name="tcsr",
              prepare=lambda a: TcsrMatrix.from_dense(a),
              run=fmt_run),
-        dict(name="rsell_pallas",
+        dict(name="rsell",
              prepare=lambda a: RsellMatrix.from_dense(a),
              run=fmt_run),
-        dict(name="asp_pallas",
+        dict(name="asp",
              prepare=lambda a: AspMatrix.from_dense(a),
              run=full_plan_run),
     ]
@@ -117,7 +110,8 @@ def sweep(cfg: SpmvConfig | None = None, verbose: bool = True,
         results.append(r)
         if verbose:
             frac = roofline_fraction(nbytes, r.seconds)
-            print(f"{r} | {frac*100:.0f}% of HBM roofline on its own bytes")
+            print(f"{r} | {frac*100:.0f}% of the memory roofline on its "
+                  "own bytes")
     return results
 
 
@@ -141,5 +135,26 @@ def headline() -> dict[str, Any]:
             }
             for r in results
         },
-        "hbm_gbps_assumed": detect_hbm_gbps(),
+        "device": device_stamp(),
     }
+
+
+def device_stamp() -> dict[str, Any]:
+    """What the numbers were measured on: JAX's device kind and count, and
+    the card's name and power limit as ``nvidia-smi`` reports them (a card
+    set below its maximum power runs slower under load)."""
+    import subprocess
+
+    import jax
+
+    d = jax.devices()[0]
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices()),
+            "nvidia_smi": smi[0] if smi else None}

@@ -32,6 +32,6 @@ class SpmvConfig:
     def __post_init__(self):
         if self.m % 8 or self.n % 128:
             raise ValueError(
-                f"M must be a multiple of 8 and N of 128 for TPU tiles; "
+                f"M must be a multiple of 8 and N of 128 (packed tiles); "
                 f"got M={self.m}, N={self.n} (pad inputs or change sizes)"
             )

@@ -7,7 +7,7 @@ library already *needs* it internally: ``chebyshev_preconditioner``
 only sees the largest eigenvalue (with unknown undershoot, hence its
 ``safety`` fudge). Lanczos with full reorthogonalization gives BOTH ends of
 the spectrum to Ritz accuracy in one fixed-shape jittable pass of ``ncv``
-SpMVs plus two ``(ncv, n)`` matmuls per step — the same MXU/VPU-friendly
+SpMVs plus two ``(ncv, n)`` matmuls per step — the same accelerator-friendly
 CGS2 shape as ``gmres``'s Arnoldi cycle, and one all-reduce per projection
 when the operator is sharded.
 
@@ -25,6 +25,11 @@ from jax import lax
 
 from tpusparse.solve import _as_apply
 
+
+def _hdot(a, b):
+    """Matrix product at full fp32 precision (an fp32 matmul may otherwise
+    run in TF32 on the GPU, about three decimal digits)."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 def lanczos(a: Any, ncv: int, *, v0: jax.Array | None = None,
             n: int | None = None, seed: int = 0):
@@ -58,10 +63,10 @@ def lanczos(a: Any, ncv: int, *, v0: jax.Array | None = None,
         v_basis, h = carry
         w = apply(v_basis[j]).astype(jnp.float32)
         # CGS2: rows past j are zero, so full-basis projections self-mask
-        c1 = v_basis @ w
-        w = w - c1 @ v_basis
-        c2 = v_basis @ w
-        w = w - c2 @ v_basis
+        c1 = _hdot(v_basis, w)
+        w = w - _hdot(c1, v_basis)
+        c2 = _hdot(v_basis, w)
+        w = w - _hdot(c2, v_basis)
         hj = jnp.sqrt(jnp.sum(w * w))
         v_basis = v_basis.at[j + 1].set(
             jnp.where(hj > tiny, w / jnp.maximum(hj, tiny), 0.0))
@@ -78,7 +83,7 @@ def eigsh(a: Any, k: int = 6, *, which: str = "LA", ncv: int | None = None,
           v0: jax.Array | None = None, n: int | None = None, seed: int = 0,
           return_vectors: bool = True):
     """Extremal eigenpairs of a SYMMETRIC operator by Lanczos
-    (``scipy.sparse.linalg.eigsh``'s role, TPU-native and jittable).
+    (``scipy.sparse.linalg.eigsh``'s role, on the device and jittable).
 
     ``which``: ``"LA"`` (largest algebraic), ``"SA"`` (smallest), or
     ``"BE"`` (both ends: ``ceil(k/2)`` from the top, the rest from the
@@ -113,9 +118,9 @@ def eigsh(a: Any, k: int = 6, *, which: str = "LA", ncv: int | None = None,
         idx = jnp.concatenate([jnp.arange(k - hi), jnp.arange(ncv - hi, ncv)])
     evals = w[idx]
     sv = s[:, idx]                                 # (ncv, k)
-    evecs = sv.T @ v_basis                         # (k, n) Ritz vectors
+    evecs = _hdot(sv.T, v_basis)                   # (k, n) Ritz vectors
     apply = _as_apply(a)
-    # lax.map, not vmap: packed-format spmv closures contain Pallas calls
+    # lax.map, not vmap: a packed-format spmv may contain a hand kernel
     # with no batching rule; map lowers to a scan of plain applications
     av = lax.map(lambda v: apply(v).astype(jnp.float32), evecs)
     resid = jnp.sqrt(jnp.sum((av - evals[:, None] * evecs) ** 2, axis=1))

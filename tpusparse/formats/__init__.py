@@ -1,6 +1,5 @@
 from tpusparse.formats.csr import CsrMatrix  # noqa: F401
 from tpusparse.formats.ell import EllMatrix  # noqa: F401
-from tpusparse.formats.bell import BellMatrix  # noqa: F401
 from tpusparse.formats.sell import SellMatrix  # noqa: F401
 from tpusparse.formats.awsp import AwspMatrix  # noqa: F401
 from tpusparse.formats.bsr import BsrMatrix  # noqa: F401

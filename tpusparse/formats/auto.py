@@ -1,35 +1,31 @@
 """auto_format: pick the right storage format from cheap matrix statistics.
 
 The reference hard-codes which kernel runs (tester.cpp:54-63); a framework
-should route a matrix to the format whose measured regime it falls in
-(crossovers from BENCH.md):
+should route a matrix to the format whose regime it falls in:
 
 - banded (few distinct diagonals, diagonal storage within ~4x of the
   slot-format's nnz-proportional bytes): DIA — k statically shifted
-  elementwise streams, no gathers, no tile quantum; the measured
-  counter-case is a 1M-unknown Laplacian where tile formats paid 8x bytes
-  and a 36x DMA-issue floor (BENCH.md §Solver). The 4x headroom is itself
-  measured: the 175k Galerkin coarse operator (15 diagonals, ~60% full)
-  sat 7% past a 1.25x threshold and ran 24x slower under TCSR (171 us vs
-  DIA's ~7-13 us, BENCH.md §AMG) — slot formats never reach their byte
-  floor on banded structure, so DIA's zero-overhead streams win well past
-  byte parity.
+  elementwise streams, no gathers, no tile quantum. Tile formats pay the
+  8-slot chunk quantum on every touched tile of a wide-spread band, and
+  slot formats stay far from their byte floor on banded structure, so DIA
+  wins well past byte parity (the 4x headroom).
 - near-dense (d > 0.65): compression cannot beat streaming dense A — use the
   ASP window-skip path (dense A + activation skipping; ~dense baseline on
   i.i.d. X, wins on structured X).
 - block-structured (>= 40% of 128x128 tiles empty): TCSR — traffic scales
-  with kept blocks, each stored dense (MXU tier) or SELL-compressed
-  (bytes ∝ in-block nnz) per the tcsr cost model.
+  with kept blocks, each stored dense or SELL-compressed (bytes ∝ in-block
+  nnz) per the tcsr cost model.
 - skewed columns (a few heavy columns force the global SELL width to >= 1.5x
   the typical column group's need) OR window-concentrated nnz (flat SELL's
   est. bytes >= 3x the 5 B/nnz slot floor — e.g. a defected band, where
   every column needs the band width in ONE window but flat SELL pays it in
-  all of them; r3 gallery finding): RSELL — per-tile widths, the measured
-  skew winner on latency AND bytes — when X and Y fit its whole-in-VMEM
-  wide kernel at the expected batch; binned SELL (per-bucket widths,
-  tiled output) for skew past that budget, TCSR for padding without skew.
+  all of them): RSELL — per-tile widths, bytes track each tile's own
+  demand at every size.
 - otherwise: SELL (flat), or AWSP (SELL + activation window-group skip) when
   the caller expects structured activations.
+
+The thresholds were fitted on an earlier accelerator and keep their values
+until they are measured again on this one.
 """
 
 from __future__ import annotations
@@ -71,9 +67,9 @@ def matrix_stats(a: np.ndarray) -> dict[str, Any]:
     # per-TILE width demand -> what a per-tile-width format (RSELL, TCSR's
     # SELL tier) would actually store: round_up(w_tile, 8) slot-rows of
     # 5*128 bytes per occupied 128x128 tile. The batch routing law needs
-    # this, not flat SELL's hub-inflated global padding (r3 gallery: a
-    # hub graph's est_sell_bytes is 24x its real routed bytes, which
-    # flipped B=8 serving to a catastrophic densify).
+    # this, not flat SELL's hub-inflated global padding (a hub graph's
+    # est_sell_bytes can be 24x its real routed bytes, which would flip
+    # B=8 serving to a catastrophic densify).
     w_tile = win.max(axis=2)                              # (mb, nb)
     occ = w_tile > 0
     slot_tile_bytes = int((np.ceil(w_tile[occ] / 8) * 8).sum()) * 5 * _LANES
@@ -94,7 +90,7 @@ def matrix_stats(a: np.ndarray) -> dict[str, Any]:
 def matrix_stats_csr(csr) -> dict[str, Any]:
     """The same statistics computed from (row_ptr, col_idx) in O(nnz) —
     never touches an (m, n) dense array, so the router works on matrices too
-    large to materialize (VERDICT r1 missing #5)."""
+    large to materialize."""
     m, n = csr.shape
     nnz = csr.nnz
     density = nnz / max(m * n, 1)
@@ -149,7 +145,7 @@ def matrix_stats_csr(csr) -> dict[str, Any]:
 def route(m: int, n: int, s: dict[str, Any], *,
           expect_structured_x: bool = False, expect_batch: int = 1) -> str:
     """The routing DECISION alone, from statistics — no packing. Returns
-    one of {"dia", "asp", "tcsr", "rsell", "binned", "awsp", "sell"}.
+    one of {"dia", "asp", "tcsr", "rsell", "awsp", "sell"}.
     ``auto_format`` is this decision plus the matching packer; exposing it
     separately lets the gallery benchmark and router tests ask "what would
     you pick" on matrices whose packing costs seconds."""
@@ -158,18 +154,12 @@ def route(m: int, n: int, s: dict[str, Any], *,
     # matrix "has" every diagonal at low fill) and diagonal storage
     # (4*k*n bytes, zero-overhead streams) is within ~4x of the slot
     # formats' nnz-proportional floor (5 B/nnz), nothing tile- or
-    # gather-shaped can beat it — tile formats are CATASTROPHIC on
-    # wide-spread bands (the (8,128) VREG quantum per touched tile;
-    # measured 8x bytes + 36x DMA floor on the 1M Laplacian, and 24x on
-    # the 15-diagonal 175k Galerkin coarse operator that a 1.25x
-    # threshold mis-routed to TCSR — BENCH.md §Solver/§AMG). 4x DIA
-    # bytes at roofline still beats a slot format running at <25% of
-    # its floor rate. Bitwise-symmetric operators store only d >= 0
-    # (formats/dia.py symmetric="auto"), so every byte in the admission
-    # math halves. The final guard keeps DIA strictly under dense bytes
-    # (with 20% headroom): a small near-dense matrix can pass the fill +
-    # slot-floor tests with ~2x dense traffic spread over hundreds of
-    # shifted VPU streams, where one MXU matmul is the speed of light.
+    # gather-shaped can beat it. Bitwise-symmetric operators store only
+    # d >= 0 (formats/dia.py symmetric="auto"), so every byte in the
+    # admission math halves. The final guard keeps DIA strictly under
+    # dense bytes (with 20% headroom): a small near-dense matrix can pass
+    # the fill + slot-floor tests with ~2x dense traffic spread over
+    # hundreds of shifted streams, where one matmul is the speed of light.
     n_diags = s.get("n_diags", 1 << 30)
     eff_diags = (n_diags + 1) // 2 if s.get("diag_sym") else n_diags
     if 0 < n_diags <= 512 and \
@@ -177,14 +167,13 @@ def route(m: int, n: int, s: dict[str, Any], *,
             4 * eff_diags * n <= 4.0 * 5 * s["nnz"] and \
             4 * eff_diags * n <= 0.8 * 4 * m * n:
         return "dia"
-    # batch: gather formats pay VPU gather work per (slot, batch) element,
-    # so SpMM time is ~B x their bytes-time while dense-tile time is
+    # batch: gather formats pay gather work per (slot, batch) element, so
+    # SpMM time is ~B x their bytes-time while dense-tile time is
     # density-independent; route to dense tiles when B x the bytes the
-    # B=1 routing would ACTUALLY move exceeds ~1.3x dense bytes (measured
-    # B-sweep, BENCH.md). That is min(flat SELL, per-tile-width storage):
-    # on a hub graph flat SELL's global padding is 24x the routed RSELL
-    # bytes, and using it here flipped B=8 serving to a catastrophic
-    # densify of a d=0.002 matrix (r3 gallery).
+    # B=1 routing would ACTUALLY move exceeds ~1.3x dense bytes. That is
+    # min(flat SELL, per-tile-width storage): on a hub graph flat SELL's
+    # global padding is 24x the routed RSELL bytes, and using it here
+    # would densify a d=0.002 matrix for B=8 serving.
     est_sell_bytes = (-(-n // _LANES)) * (-(-m // _LANES)) * \
         round_up(max(s["w_global"], 8), 8) * _LANES * 5
     eff_gather_bytes = min(est_sell_bytes,
@@ -193,7 +182,7 @@ def route(m: int, n: int, s: dict[str, Any], *,
     if expect_batch >= 2 and \
             expect_batch * eff_gather_bytes >= 1.3 * dense_bytes:
         return "tcsr" if s["empty_block_frac"] >= 0.4 else "asp"
-    if s["density"] > 0.65:   # r2 crossover: sell/dense = 0.99x at d=0.7
+    if s["density"] > 0.65:
         return "asp"
     if s["empty_block_frac"] >= 0.4:
         # TCSR rather than plain BSR: it keeps the block skip and adds the
@@ -206,31 +195,12 @@ def route(m: int, n: int, s: dict[str, Any], *,
     # windows per column (a band with defects: every column ~65 nnz in one
     # window, so w_global=67 with NO column skew and NO empty 128^2 blocks
     # once defects sprinkle every tile) packs to est_sell_bytes far above
-    # the 5 B/nnz slot floor — found by the r3 gallery: 189 MB for a 3 MB
-    # matrix, a ~40x regret the skew rule alone never sees. Per-tile-width
-    # formats (RSELL, TCSR's SELL tier) track the floor instead.
+    # the 5 B/nnz slot floor — 189 MB for a 3 MB matrix, a regret the skew
+    # rule alone never sees. Per-tile-width formats track the floor.
     pad_ratio = est_sell_bytes / max(5 * s["nnz"], 1)
     if skew or pad_ratio >= 3.0:
-        # RSELL (per-tile widths) wins skew on BOTH latency and bytes since
-        # the r2 step-geometry work (8192^2 powerlaw d=0.15: rsell 82.6 us
-        # = 4.3x dense vs binned 95.6 us; 39 vs 69 MB — BENCH.md), but its
-        # wide kernel keeps X and Y whole in VMEM; past that budget fall
-        # back to binned (bucketed widths, tiled output) for column skew —
-        # or to TCSR for padding without skew, where binned's column sort
-        # cannot recover anything (all columns look alike) but TCSR's
-        # per-tile SELL tier still tracks the slot floor.
-        # the kernel's OWN budget predicate (96 MB hard cap with a raised
-        # per-kernel vmem limit past the 8 MB comfort zone) — an earlier
-        # hand-mirrored 8 MB copy of this check drifted from the kernel and
-        # mis-routed a 262144^2 powerlaw (needs 9.4 MB of X/Y residency) to
-        # binned, whose quantile buckets cannot contain a powerlaw tail at
-        # that column count: 24.5 GB packed vs RSELL's nnz-proportional
-        # stream (the r4 GB-scale run's first finding, BENCH.md §scale)
-        from tpusparse.kernels.rsell_spmv import wide_fits
-
-        if wide_fits(m, n, max(expect_batch, 1)):
-            return "rsell"
-        return "binned" if skew else "tcsr"
+        # RSELL: per-tile widths, bytes ∝ each tile's own demand
+        return "rsell"
     return "awsp" if expect_structured_x else "sell"
 
 
@@ -266,13 +236,10 @@ def predicted_bytes(m: int, n: int, s: dict[str, Any], kind: str,
     packing. Exact enough to gate GB-scale packs before paying for them
     (bench/scale.py's quantum-floor guard): slot formats cannot go below
     round_up(w_tile, 8) x 5 B x 128 lanes per occupied 128^2 tile (the
-    (8,128)-VREG chunk quantum), which ``slot_tile_bytes`` sums exactly;
-    a 262144^2 powerlaw at d~8e-4 touches 99.2% of its 4.19M tiles, so
-    EVERY slot format floors past single-chip HBM — the regime where the
-    multi-chip partitions (parallel/sparse.py) are the design answer
-    (unsorted 37.2 GB; 15.5 GB even after the SELL-sigma sort; binned
-    MEASURED 24.5 GB: buckets amortize SOME hub width, never the tile
-    quantum). Pass ``csr`` to price the skew-routed RSELL pack honestly
+    8-slot chunk quantum), which ``slot_tile_bytes`` sums exactly; a
+    262144^2 powerlaw at d~8e-4 touches 99.2% of its 4.19M tiles, so
+    EVERY slot format floors past one card's memory — the regime where
+    the multi-chip partitions (parallel/sparse.py) are the design answer. Pass ``csr`` to price the skew-routed RSELL pack honestly
     (it sorts columns; stats-only prediction is the unsorted upper
     bound)."""
     if kind == "dia":
@@ -306,13 +273,11 @@ def auto_format(a, *, expect_structured_x: bool = False,
     """Pack ``a`` into the format its statistics call for (see module doc).
 
     ``expect_batch``: anticipated SpMM batch size. Gather-based formats
-    (SELL/AWSP) pay VPU gather work per (slot, batch) element, so SpMM time
-    is ~B x (the format's own bytes-time), while dense-tile time is
-    density-independent (measured B-sweep in BENCH.md: 50 us x B at d=0.5,
-    18.5 us x B at d=0.1, vs ~85 us dense). Crossover: route to dense tiles
-    when B x estimated SELL bytes exceeds ~1.3x the dense bytes — BSR when
-    the structure is blocky, else ASP (dense tiles + activation window
-    skip).
+    (SELL/AWSP) pay gather work per (slot, batch) element, so SpMM time is
+    ~B x (the format's own bytes-time), while dense-tile time is
+    density-independent. Crossover: route to dense tiles when B x
+    estimated SELL bytes exceeds ~1.3x the dense bytes — TCSR when the
+    structure is blocky, else ASP (dense tiles + activation window skip).
 
     ``a`` may be a dense ndarray or a ``CsrMatrix``: with CSR input both the
     statistics (``matrix_stats_csr``) and every packing branch stay O(nnz)
@@ -341,8 +306,6 @@ def auto_format(a, *, expect_structured_x: bool = False,
             else TcsrMatrix.from_dense(a, expect_batch=expect_batch)
     elif kind == "rsell":
         from tpusparse.formats.rsell import RsellMatrix as K
-    elif kind == "binned":
-        from tpusparse.formats.binned import BinnedSellMatrix as K
     elif kind == "awsp":
         from tpusparse.formats.awsp import AwspMatrix as K
     else:

@@ -1,19 +1,18 @@
 """AWSP: SELL weight compression + activation window-group-skip plan.
 
-The TPU equivalent of the reference's combined weight+activation-sparse
+The counterpart of the reference's combined weight+activation-sparse
 formats (`AWSPMatrix`, awsp.cpp:3-65; `AWSPRefMatrix`, awsp_ref.cpp:4-78):
 A is packed once with the SELL converter (bytes ∝ nnz(A)); each product
-call visits only the G·128-row m-window groups where X has any nonzero
-(kernels/awsp_spmv.py, which also explains why the skip granularity is a
-group, not a window). The plan of active groups comes from one of two
+call reduces only the G·128-row m-window groups where X has any nonzero
+(kernels/awsp_spmv.py). The plan of active groups comes from one of two
 paths:
 
 - concrete X (or an explicit ``plan=``): an O(M) host-side exact-sized
   plan — a static operand, one compile per distinct active-count;
 - under jit tracing (serving loops): the DEVICE-side dynamic path — the
-  activity mask, compacted id list, and active count are XLA ops and the
-  kernel grid is bound by the traced count. Zero host cost, one compile
-  for every activation pattern — the reference's per-call x==0 skip
+  activity mask and the compacted id list are XLA ops, padded to the group
+  count with the zero group. Zero host cost, one compile for every
+  activation pattern — the reference's per-call x==0 skip
   (awsp.cu:95-107) without its per-element overhead.
 
 Padding convention: the window axis is padded to a multiple of G, then one
@@ -81,20 +80,11 @@ class AwspMatrix:
     def from_dense(cls, a: np.ndarray, w: int | None = None,
                    g: int = 1, dtype: Any = None) -> "AwspMatrix":
         """``g``: windows per skippable group (skip granularity g*128 rows).
-        Default 1 — per-window skip, the finest the layout admits: the r5
-        floor study (data/dynamic_floor.json, BENCH.md §dynamic) measured
-        the plan machinery at ~2 us with per-ng overhead in the jitter
-        (NOT the r3 "~25-30 us plan floor", which was group-granularity
-        quantization: k_act = max(1, live*ng) cannot go below one group),
-        and g=1 extends the dynamic win region to live=1/32 (3.4 us vs
-        g=8's 21.8 at m=4096 d=0.5) while costing nothing at live=1.0
-        (74.6 vs 70.9 static, inside contention jitter). Coarser g only
-        helps when the caller wants fewer, larger DMA steps on dense
-        plans (g=16 measured ~8% faster at live=1.0, half the skip
-        resolution). ``dtype``: bf16 value storage, same trade as
+        Default 1 — per-window skip, the finest the layout admits; a
+        coarser g trades skip resolution for fewer, larger groups.
+        ``dtype``: bf16 value storage, same trade as
         SellMatrix.from_dense. Reference granularity target: the per-
-        32-element word skip of asp.cu:20-27 — 128 rows is the TPU
-        lane-tile quantum, the closest hardware-native analog."""
+        32-element word skip of asp.cu:20-27."""
         return cls._from_pack(sell_pack(a, w=w, dtype=dtype), g)
 
     @classmethod
@@ -131,11 +121,8 @@ class AwspMatrix:
     def plan(self, x2d: np.ndarray) -> np.ndarray:
         """Active-group ids for this activation (the zero group if none).
 
-        Exact-sized on purpose: a padded entry pointing at the zero group is
-        NOT free — Mosaic re-issues the DMA for dynamically-indexed blocks
-        even when the index repeats (measured: a 1-active/3-pad plan ran at
-        full-matrix traffic). Exact plans mean one compile per distinct
-        active-count, which is bounded by the group count and cached.
+        Exact-sized: one compile per distinct active-count, which is
+        bounded by the group count and cached.
         """
         x2d = np.asarray(x2d)
         if x2d.ndim == 1:
@@ -163,20 +150,18 @@ class AwspMatrix:
         xp = jnp.pad(xj, ((0, 0), (0, rows_tot - xj.shape[1])))
         if (plan is None and isinstance(xj, jax.core.Tracer)) \
                 or (isinstance(plan, str) and plan == "device"):
-            # zero-host-cost dynamic skip: the activity mask, compacted
-            # plan, and active count are computed on device and the grid is
-            # bound by the traced count (kernels/awsp_spmv.py) — one
-            # compile serves every activation pattern, matching the
+            # zero-host-cost dynamic skip: the activity mask and the
+            # compacted plan are computed on device (kernels/awsp_spmv.py)
+            # — one compile serves every activation pattern, matching the
             # reference's per-call x==0 skip (awsp.cu:95-107) with no host
-            # round-trip. Closes VERDICT r2 "missing #1".
-            out = awsp_spmm_dynamic(self.idx, self.vals, xp,
-                                    w=self.w, g=self.g)
-            return out[::_SUB, :self.shape[1]]
+            # round-trip.
+            out = awsp_spmm_dynamic(self.idx, self.vals, xp, g=self.g)
+            return out[:, :self.shape[1]]
         if plan is None:
             plan = self.plan(np.asarray(x2d))
         out = awsp_spmm_padded(jnp.asarray(plan), self.idx, self.vals,
-                               xp, w=self.w, g=self.g)
-        return out[::_SUB, :self.shape[1]]
+                               xp, g=self.g)
+        return out[:, :self.shape[1]]
 
     def spmv(self, x: Any, plan: Any = None) -> jax.Array:
         """``plan``: None (host-exact plan for concrete x, device-dynamic

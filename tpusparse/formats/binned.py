@@ -1,6 +1,6 @@
 """Binned SELL: sorted column groups with per-bucket padding widths.
 
-The static row-binning scheduler SURVEY.md §7 prescribes as the TPU
+The static row-binning scheduler SURVEY.md §7 prescribes as the
 replacement for the reference's *adaptive* padding machinery:
 
 - AWSP-Ref pads each warp stripe to a per-warp max and carries per-warp base
@@ -11,8 +11,8 @@ replacement for the reference's *adaptive* padding machinery:
 Here: output columns are sorted by nnz (the SELL-sigma trick, sigma = whole
 matrix), grouped into 128-column tiles, and each tile assigned to a bucket
 whose SELL width is the smallest level covering its own max window nnz. One
-Pallas call per bucket (a handful of static shapes — XLA-friendly), then the
-output permutation is undone with a single gather. On power-law matrices the
+SELL product per bucket (a handful of static shapes), then the output
+permutation is undone with a single gather. On power-law matrices the
 dense head pays W=128 while the long tail pays W=8.
 """
 
@@ -34,10 +34,8 @@ _LANES = 128
 def _pick_levels(group_w: np.ndarray, max_buckets: int = 3) -> list[int]:
     """Adaptive width levels (slots per 128-window) from the distribution of
     per-group demand. Few, large buckets on purpose: each bucket is its own
-    Pallas call with its own pipeline ramp-up, and measured per-call cost
-    outweighs the padding a fine-grained fixed ladder saves (BENCH.md: a
-    7-level ladder ran a power-law matrix at 26% of roofline; the 2-3
-    bucket quantile ladder recovers most of it)."""
+    product with its own launch, and per-call cost outweighs the padding a
+    fine-grained ladder would save."""
     qs = (0.5, 0.85, 1.0)[-max_buckets:]
     levels = sorted({max(round_up(int(np.quantile(group_w, q)), 8), 8)
                      for q in qs})
@@ -200,34 +198,16 @@ class BinnedSellMatrix:
     def _run(self, x2d: jax.Array) -> jax.Array:
         from tpusparse.kernels.sell_spmv import sell_spmm_padded
 
-        from tpusparse import tune
-
         parts = []
-        for b, w in zip(self.buckets, self.widths):
+        for b in self.buckets:
             vals = b["vals"]
             mp = vals.shape[1] * _LANES
             xp = x2d
             if xp.shape[1] != mp:
                 xp = jnp.pad(xp, ((0, 0), (0, mp - xp.shape[1])))
-            # narrow buckets (small w) are exactly where the fixed default
-            # geometry under-fills grid steps; size each bucket's steps by
-            # its own width
-            nbk, ntk = vals.shape[0], vals.shape[1]
-            tw, jb = tune.sell_geometry(
-                ntk, nbk, w, itemsize=np.dtype(vals.dtype).itemsize,
-                batch=x2d.shape[0])
-            out = sell_spmm_padded(b["idx"], vals, xp, w=w,
-                                   windows_per_step=tw,
-                                   col_groups_per_step=jb)
-            parts.append(out[::8])                 # (B, nb_k*128)
-        y_sorted = jnp.concatenate(parts, axis=1)
-        # a 4096-lane jnp.take costs ~20-35 us on TPU (near-serial per
-        # index); the static-permutation Pallas kernel (in-VREG lane
-        # shuffles + precomputed one-hot source-group masks) does the same
-        # unpermute in a few us — see kernels/permute.py
-        from tpusparse.kernels.permute import apply_permutation
-
-        return apply_permutation(y_sorted, self.perm_plan, self.shape[1])
+            parts.append(sell_spmm_padded(b["idx"], vals, xp))
+        y_sorted = jnp.concatenate(parts, axis=1)      # (B, np_) sorted
+        return jnp.take(y_sorted, jnp.asarray(self.inv_perm), axis=1)
 
     def spmv(self, x: Any) -> jax.Array:
         return self._run(jnp.asarray(x)[None, :])[0]

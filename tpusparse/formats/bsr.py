@@ -1,10 +1,10 @@
-"""BSR: block-sparse rows of MXU-sized dense tiles (see kernels/bsr_spmv.py).
+"""BSR: block-sparse rows of dense tiles (see kernels/bsr_spmv.py).
 
 The storage analog of the reference's TCSR (tcsr.cpp:5-62): TCSR kept a
 32x32-block bitmap + compacted values + a block-CSR offset array; BSR keeps
-(block_m x 128) *dense* tiles plus their (i, j) coordinates — on TPU a block
-either feeds the MXU whole or is skipped whole, so intra-block compression
-(TCSR's bitmap) only adds decompress cost (see bell_spmv.py for why).
+(block_m x 128) *dense* tiles plus their (i, j) coordinates — a block is
+either multiplied whole or skipped whole. The compressed per-tile tier is
+TcsrMatrix's job (formats/tcsr.py).
 
 Also the BSR *ingestion* path mandated by BASELINE.json ("COO/BSR
 ingestion"): ``from_blocks`` accepts scipy-style block data directly.
@@ -73,18 +73,13 @@ def bsr_pack_csr(csr, block_m: int = 128) -> dict[str, Any]:
 def _canonicalize_blocks(bi, bj, get_blocks, nb, block_m, dtype):
     """Establish the block-list invariants both kernels rely on:
 
-    - sorted by (bj, bi): the scan kernel's first-visit init needs bj
-      non-decreasing, and consecutive same-bj steps keep the output tile
-      VMEM-resident;
-    - every output group has at least one block (it zero-initializes its
-      output tile in the scan path) — empty groups get an explicit zero
-      block;
+    - sorted by (bj, bi): the product's ``segment_sum`` is told the
+      output ids are sorted;
+    - every output group has at least one block — empty groups get an
+      explicit zero block;
     - long lists are padded with zero blocks at the LAST group (bj stays
-      non-decreasing) to a step-alignment multiple — 8 from 64 blocks, 32
-      from 512 — so the wide kernel's bytes-targeting tiles-per-step snap
-      finds a large divisor; short lists skip the padding — the kernel's
-      per-step tile count adapts to any divisor, and for a handful of
-      blocks the zero-block stream would dominate the real traffic.
+      non-decreasing) to an alignment multiple — 8 from 64 blocks, 32
+      from 512; short lists skip the padding.
 
     ``get_blocks(order) -> (nblk, TBm, 128)`` fetches the payload in the
     given (bj, bi)-sorted permutation of the input coordinate lists.
@@ -203,12 +198,11 @@ class BsrMatrix:
         from tpusparse.kernels.bsr_spmv import bsr_spmm_padded
 
         mp, np_ = self.padded
-        b = x2d.shape[0]
         if x2d.shape[1] != mp:
             x2d = jnp.pad(x2d, ((0, 0), (0, mp - x2d.shape[1])))
         y = bsr_spmm_padded(self.bi, self.bj, self.blocks, x2d,
                             block_m=self.block_m, n_padded=np_)
-        return y[:b, :self.shape[1]]
+        return y[:, :self.shape[1]]
 
     def spmv(self, x: Any) -> jax.Array:
         return self._run(jnp.asarray(x)[None, :])[0]

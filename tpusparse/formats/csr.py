@@ -1,6 +1,6 @@
 """CSR ingestion/interchange format (host-side, numpy).
 
-TPU-native rethink of the reference's ``CSRMatrix`` (matrix_csr.hpp:4-25):
+A rethink of the reference's ``CSRMatrix`` (matrix_csr.hpp:4-25):
 because the op is ``Y = X @ A``, the reference compresses along *columns* of A
 ("CSR will be column-major", matrix_csr.cpp:7-23) — i.e. it stores CSR of
 A-transpose. We keep that semantic (each "row" of this CSR is one output
@@ -12,7 +12,7 @@ over ``A.T``. Differences from the reference, on purpose:
   (csr_naive.cu:15) — a bug farm we don't reproduce;
 - COO ingestion and npz save/load (SURVEY.md §5: formats get persistence in
   lieu of checkpointing);
-- this is an *interchange* format: TPU compute formats (ELL/BELL/BSR) convert
+- this is an *interchange* format: compute formats (ELL/SELL/BSR, ...) convert
   from it; nothing gathers through raw row pointers on-device (XLA wants
   static shapes, SURVEY.md §7 "hard parts").
 """

@@ -1,16 +1,15 @@
 """DIA: diagonal-offset storage for banded matrices.
 
-Motivating measurement (BENCH.md §Solver): a 1M-unknown 5-point Laplacian
-routed to tile formats pays the (8, 128) VREG quantum on every one of
-~41k touched tiles — 210 MB stored for 26 MB of payload, and a grid-step
-DMA-issue floor of ~0.25 us/tile (10.2 ms per SpMV, 36x the bytes floor).
-Banded structure is not tile-shaped; it is SHIFT-shaped:
+Motivation: a 1M-unknown 5-point Laplacian routed to tile formats pays the
+(8, 128) chunk quantum on every one of ~41k touched tiles — 210 MB stored
+for 26 MB of payload. Banded structure is not tile-shaped; it is
+SHIFT-shaped:
 
     y[c] = sum_d  vals_d[c] * x[c + d]        (d = m_index - out_index)
 
-so the TPU-native carrier is k dense diagonal arrays and k statically
-shifted elementwise multiply-adds — pure VPU streams that XLA fuses into
-one pass, no gathers, no tiles, no Pallas needed. Bytes = k*n*4 regardless
+so the carrier is k dense diagonal arrays and k statically shifted
+elementwise multiply-adds — streams that XLA fuses into one loop fusion,
+no gathers, no tiles. Bytes = k*n*4 regardless
 of where the band sits. The reference has no banded format (its tester is
 uniform-random, tester.cpp:106); this closes the gap the solver bench
 exposed, and `auto_format` routes to it whenever the diagonal count is
@@ -20,7 +19,7 @@ Offsets are STATIC (pytree aux, a tuple of ints): each diagonal's shift
 becomes a trace-time `lax.slice`, so `jit` sees fixed shapes and the
 whole SpMV lowers to one fused elementwise loop.
 
-Unlike the Pallas formats (which need `autodiff.linear_map`'s custom
+Unlike the gather formats (which need `autodiff.linear_map`'s custom
 VJPs), DIA is natively differentiable: slices/pads have built-in
 adjoints, so `jax.grad` flows through d/dx AND d/dvals (trainable
 banded operators) at full fused speed (tests/test_dia.py).
@@ -49,13 +48,11 @@ def dia_pack_csr(csr, max_diags: int = 512,
     ``symmetric="auto"`` (default) detects BITWISE-symmetric square
     operators and keeps only the ``d >= 0`` diagonals — the mirror
     ``vals_{-d}[c] = vals_d[c-d]`` is reconstructed at apply time from
-    the SAME array at a shifted offset. This nearly halves HBM traffic,
-    not just capacity: XLA fuses all terms into one tiled pass, and a
-    tile of ``vals_d`` staged in VMEM serves both of its offset reads
-    (the same mechanism that lets the existing k offset-reads of ``x``
-    cost one stream, measured 1.02x the single-count bytes floor,
-    BENCH.md §Solver). Symmetric operators are the iterative-solver
-    common case (CG/AMG require them). ``False`` forces full storage;
+    the SAME array at a shifted offset. This nearly halves memory
+    traffic, not just capacity: XLA fuses all terms into one pass, and
+    both offset reads of ``vals_d`` hit the same cache lines (as the k
+    offset-reads of ``x`` do). Symmetric operators are the
+    iterative-solver common case (CG/AMG require them). ``False`` forces full storage;
     ``True`` asserts symmetry and raises if it does not hold bitwise.
     """
     m, n = csr.shape
@@ -108,37 +105,33 @@ class DiaMatrix:
 
     ``sym=True``: only ``d >= 0`` diagonals are stored (square bitwise-
     symmetric operators); the ``-d`` mirror is the same array read at a
-    shifted offset, ``vals_{-d}[c] = vals_d[c-d]`` — near-half the HBM
+    shifted offset, ``vals_{-d}[c] = vals_d[c-d]`` — near-half the memory
     traffic for the solver-stack common case (see ``dia_pack_csr``).
     """
 
     def __init__(self, offsets: tuple, vals: Any, shape, nnz: int,
-                 sym: bool = False, xla_only: bool = False):
+                 sym: bool = False):
         self.offsets = tuple(offsets)   # static: aux data, hashable
         self.vals = vals                # (k, n) fp32
         self.shape = shape
         self.nnz = nnz
         self.sym = bool(sym)
-        # GSPMD-partitionable lowering: spmv skips the Pallas kernel (a
-        # pallas_call is opaque to GSPMD; amg.shard() relies on the XLA
-        # slice/pad form lowering to halo collective-permutes when the
-        # level vectors are sharded by placement alone)
-        self.xla_only = bool(xla_only)
 
     def tree_flatten(self):
         return ((self.vals,), (self.offsets, self.shape, self.nnz,
-                               self.sym, self.xla_only))
+                               self.sym))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         (vals,) = children
-        return cls(aux[0], vals, *aux[1:])
+        return cls(aux[0], vals, *aux[1:4])
 
     @classmethod
     def _io_rebuild(cls, aux, leaves):
         if len(leaves) != 1:
             raise ValueError(f"{len(leaves)} leaves, expected 1")
-        # len-3/4 aux: files saved before the sym / xla_only fields
+        # len-3 aux: files saved before the sym field; a fifth entry (a
+        # retired lowering switch) is ignored
         return cls.tree_unflatten(tuple(aux), leaves)
 
     def __repr__(self) -> str:
@@ -178,8 +171,7 @@ class DiaMatrix:
                 rows[-d] = lax.pad(vals[i], jnp.float32(0), ((d, -d, 0),))
         offs = sorted(rows)
         return DiaMatrix(tuple(offs), jnp.stack([rows[d] for d in offs]),
-                         self.shape, self.nnz, sym=False,
-                         xla_only=self.xla_only)
+                         self.shape, self.nnz, sym=False)
 
     def to_dense(self) -> np.ndarray:
         m, n = self.shape
@@ -201,26 +193,12 @@ class DiaMatrix:
         return max(0, -dmin), max(0, dmax + n - m)
 
     def spmv(self, x: Any) -> jax.Array:
-        """y = x @ A: k statically-shifted fused multiply-adds (VPU).
-
-        Square operators go through the Pallas kernel
-        (``kernels/dia_spmv.py``) — the XLA slice/pad form below
-        materializes every lane-unaligned shifted stream (1M-unknown sym
-        Laplacian: 51.4 us vs the kernel's one-pass streams, r4) and is
-        kept for the shapes the kernel doesn't cover (rectangular, >32
-        diagonals, tiny n)."""
+        """y = x @ A: k statically-shifted multiply-adds, which XLA fuses
+        into one loop."""
         x = jnp.asarray(x)
         if x.ndim != 1:
             return self.spmm(x)
         m, n = self.shape
-        from tpusparse.kernels.dia_spmv import dia_spmv_pallas, fits
-
-        if m == n and not self.xla_only and \
-                fits(self.offsets, self.sym, n):
-            return dia_spmv_pallas(tuple(self.offsets),
-                                   jnp.asarray(self.vals),
-                                   x.astype(jnp.float32),
-                                   sym=self.sym, n=n)
         lo, hi = self._x_pad()
         xp = jnp.pad(x.astype(jnp.float32), (lo, hi))
         y = jnp.zeros(n, jnp.float32)

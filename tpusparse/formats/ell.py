@@ -1,13 +1,13 @@
-"""ELL: per-output-column padded gather format (XLA path, no Pallas).
+"""ELL: per-output-column padded gather format (plain XLA path).
 
 Equivalent of the reference's WSP value layout — each output column's
 nonzeros packed then zero-padded to the global max column nnz
 (wsp.cpp:23-39, ``nz_max_m``) — but with *explicit gather indices* instead of
 a bitmap + popcount ranking (wsp.cu:37-39): SURVEY.md §3.3 calls this out as
-the TPU translation ("pre-computed gather indices baked by the converter").
+the translation ("pre-computed gather indices baked by the converter").
 
 This is the simple/portable kernel (the csr_naive.cu:13-22 scalar-gather
-analog): one XLA gather + multiply + row-sum, no Pallas. It wins on small or
+analog): one XLA gather + multiply + row-sum. It wins on small or
 very sparse problems and is the correctness cross-check for the block
 formats. Pad slots point at index 0 with value 0, so they contribute nothing.
 """

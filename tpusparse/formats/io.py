@@ -12,7 +12,6 @@ import ast
 import numpy as np
 
 from tpusparse.formats.awsp import AwspMatrix
-from tpusparse.formats.bell import BellMatrix
 from tpusparse.formats.binned import BinnedSellMatrix
 from tpusparse.formats.bsr import BsrMatrix
 from tpusparse.formats.dia import DiaMatrix
@@ -21,7 +20,7 @@ from tpusparse.formats.sell import SellMatrix
 from tpusparse.formats.tcsr import TcsrMatrix
 from tpusparse.kernels.asp_spmv import AspMatrix
 
-_KINDS = {"sell": SellMatrix, "bell": BellMatrix, "bsr": BsrMatrix,
+_KINDS = {"sell": SellMatrix, "bsr": BsrMatrix,
           "awsp": AwspMatrix, "binned": BinnedSellMatrix, "asp": AspMatrix,
           "tcsr": TcsrMatrix, "rsell": RsellMatrix, "dia": DiaMatrix}
 

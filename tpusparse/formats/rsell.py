@@ -6,7 +6,7 @@ of (8 slots x 128 lanes); bytes track each tile's OWN max column nnz instead
 of SELL's global W (wsp.cpp:31's global max, the reference's known weakness)
 or binned's bucket ladder. All-zero tiles store nothing.
 
-``rsell_shard_pack`` is the ragged SHARDING story (VERDICT r1 missing #3):
+``rsell_shard_pack`` is the ragged SHARDING story:
 output groups are assigned to shards either balancing per-shard chunk loads
 (default) or contiguously after a demand sort (the chip-level analog of
 AWSP-Ref's per-warp max padding, awsp_ref.cpp:25-40 — each shard gets its
@@ -42,7 +42,7 @@ def rsell_pack_csr(csr, sort: bool | str = "auto",
     exactly when the router's skew test fires (w_global >= 1.5 x typical) —
     block/banded structure packs tighter unsorted (sorting would scatter
     block columns across tiles). Sorted packs carry the inverse column
-    permutation for kernels/permute.py's output unpermute."""
+    permutation for the output unpermute."""
     from tpusparse.formats.csr import col_window_widths, csr_rows_subset
     from tpusparse.formats.sell import _sorted_rows
 
@@ -139,31 +139,21 @@ def rsell_pack_csr(csr, sort: bool | str = "auto",
                         tile_chunks, w_jt)
 
 
-_RUN = 8                       # run alignment quantum (kernel run body)
+_RUN = 8                       # run alignment quantum
 # Align only when group padding stays under this fraction of the stream.
-# Breakeven: the flat body's per-chunk dynamic RMW measured +38% of the
-# stream's bytes-time at the GB config (671 us on a 1767 us bytes floor,
-# data/rsell_overlap.json), and pad chunks cost ~1x their byte-time
-# (streamed AND gathered) — 0.2 keeps a ~2x margin under the measured
-# breakeven while letting moderate-group packs (rmat ef16 4%, 1024^2
-# d=0.3 13%) take the aligned body; mesh2d-96's 39% stays flat.
 _RUN_PAD_FRAC = 0.2
 
 
 def _run_align(cj, ct, idx, vals):
     """Pad each output group's chunk list to a multiple of _RUN so every
-    _RUN-chunk sub-block of the stream shares one cj — the kernel then
-    pays one dynamic-offset output RMW (and one ones-matmul) per run
-    instead of per chunk (kernels/rsell_spmv.py run body; measured
-    +509 us of per-chunk VMEM RMW at the 1.45 GB GB-scale config,
-    data/rsell_overlap.json). Pad chunks carry the GROUP's cj (so even
-    an all-pad run targets the right tile) and zero vals (contribute
-    nothing). Requires cj sorted ascending (pack order).
+    _RUN-chunk sub-block of the stream shares one cj (the ``run`` field
+    records it). Pad chunks carry the GROUP's cj (so even an all-pad run
+    targets the right tile) and zero vals (contribute nothing). Requires
+    cj sorted ascending (pack order).
 
     Returns (cj, ct, idx, vals) aligned, or None when the padding would
     exceed _RUN_PAD_FRAC of the stream (small packs with many 1-3 chunk
-    groups — mesh2d-96 would pay ~39%; the flat kernel body is the
-    better trade there)."""
+    groups)."""
     n = len(cj)
     if n == 0:
         return None
@@ -193,7 +183,7 @@ def _run_align(cj, ct, idx, vals):
 def _finish_pack(cj, ct, idx, vals, nchunk, w_max, m, n_orig, mp, np_, nnz,
                  inv_perm, perm_plan, tiles, tile_chunks, w_jt,
                  run_align: bool | str = "auto"):
-    if nchunk == 0:                            # kernel needs >= 1 chunk
+    if nchunk == 0:                            # keep >= 1 chunk
         cj = np.zeros(1, np.int32)
         ct = np.zeros(1, np.int32)
         idx = np.zeros((1, _SUB, _LANES), np.int8)
@@ -207,12 +197,9 @@ def _finish_pack(cj, ct, idx, vals, nchunk, w_max, m, n_orig, mp, np_, nnz,
         elif run_align is True:
             raise ValueError("run_align=True but group padding exceeds "
                              f"{_RUN_PAD_FRAC:.0%} of the stream")
-    # step-size alignment: long chunk lists align to 128 so the kernel can
-    # pick a ~1 MB (128-chunk) grid step (divisor snap would otherwise
-    # degrade to 8 on unlucky counts); relative padding <= 12.5%, and zero
-    # chunks multiply zeros into group 0 — harmless. 128 is a multiple of
-    # _RUN, so tail pads form whole (all-zero) runs and both kernel
-    # bodies stay correct.
+    # length alignment: long chunk lists align to 128; relative padding
+    # <= 12.5%, and zero chunks multiply zeros into group 0 — harmless.
+    # 128 is a multiple of _RUN, so tail pads form whole (all-zero) runs.
     align = 128 if len(cj) >= 1024 else _SUB
     pad = -len(cj) % align if len(cj) >= 64 else 0
     if pad:
@@ -252,7 +239,7 @@ class RsellMatrix:
         self.w_max = w_max             # widest tile demand (diagnostic)
         self.run = run                 # pack run alignment (1 = flat)
         self.inv_perm = inv_perm       # None when packed unsorted
-        self.perm_plan = perm_plan     # (oidx, oh) for kernels/permute.py
+        self.perm_plan = perm_plan     # (oidx, oh) unpermute planes
 
     def tree_flatten(self):
         return ((self.cj, self.ct, self.idx, self.vals, self.inv_perm,
@@ -316,16 +303,13 @@ class RsellMatrix:
         from tpusparse.kernels.rsell_spmv import rsell_spmm_padded
 
         mp, np_ = self.padded
-        b = x2d.shape[0]
         if x2d.shape[1] != mp:
             x2d = jnp.pad(x2d, ((0, 0), (0, mp - x2d.shape[1])))
-        out = rsell_spmm_padded(self.cj, self.ct, self.idx, self.vals, x2d,
-                                n_padded=np_, run=self.run)
-        y = out[::_SUB][:b]
-        if self.perm_plan is not None:
-            from tpusparse.kernels.permute import apply_permutation
-
-            return apply_permutation(y, self.perm_plan, self.shape[1])
+        y = rsell_spmm_padded(self.cj, self.ct, self.idx, self.vals, x2d,
+                              n_padded=np_)
+        if self.inv_perm is not None:              # undo the column sort
+            return jnp.take(y, jnp.asarray(self.inv_perm)[:self.shape[1]],
+                            axis=1)
         return y[:, :self.shape[1]]
 
     def spmv(self, x: Any) -> jax.Array:
@@ -450,10 +434,8 @@ def rsell_shard_pack(csr_or_dense, n_shards: int,
              for d in range(n_shards)]
     counts = np.array([p["n_real"] for p in packs], dtype=np.int64)
     w_shard = np.array([p["w_max"] for p in packs], dtype=np.int64)
-    # one static kernel serves every shard, so the run flag must be
-    # uniform: run-aligned only when every shard's pack aligned (packs
-    # whose group padding would exceed the 5% gate fall back to flat, and
-    # an aligned pack is still correct under the flat body)
+    # one program serves every shard, so the run flag must be uniform:
+    # run-aligned only when every shard's pack aligned
     run = _RUN if all(p.get("run", 1) == _RUN for p in packs) else 1
     lmax = max(int(max(p["cj"].shape[0] for p in packs)), 1)
     if run > 1:

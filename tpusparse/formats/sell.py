@@ -1,8 +1,8 @@
 """SELL: sliced-ELL with in-window int8 indices — see kernels/sell_spmv.py.
 
 Converter-side ranking (numpy): the popcount work the reference did per
-kernel launch on the GPU (wsp.cu:37-39) happens once here at pack time; the
-device kernel then does only lane-local gathers. ``tpusparse.native``
+kernel launch (wsp.cu:37-39) happens once here at pack time; the device
+product then does only in-window gathers. ``tpusparse.native``
 provides a C++ fast path for this packing when available.
 """
 
@@ -27,13 +27,12 @@ def sell_pack(a: np.ndarray, w: int | None = None,
     """``dtype``: storage dtype for the values (default: keep ``a``'s).
     ``ml_dtypes.bfloat16`` halves value bytes for serving workloads that
     tolerate bf16 value quantization: abs error ~= 4e-3 x sqrt(column nnz)
-    x E|v*x| (~6e-2 on the canonical 4096/0.5 workload; accumulation stays
-    fp32 in the kernel; see BENCH.md 'reduced precision')."""
+    x E|v*x| (accumulation stays fp32)."""
     a = np.asarray(a)
     if dtype is not None and np.dtype(dtype) == np.int8:
         # symmetric per-output-column int8 quantization (serving lane):
-        # 2 bytes/slot vs fp32's 5; the kernel dequantizes AFTER the
-        # MXU reduction with one per-column scale multiply. abs error
+        # 2 bytes/slot vs fp32's 5; the product dequantizes AFTER the
+        # reduction with one per-column scale multiply. abs error
         # ~= (max|v|_col / 254) * sqrt(col nnz) * E|x| — same order as
         # bf16 storage; outside the 1e-3 contract, opt-in.
         p = sell_pack(a, w=w, use_native=use_native)
@@ -247,45 +246,17 @@ class SellMatrix:
         a[tt * _LANES + cc, jj * _LANES + rr] = v
         return a[:self.shape[0], :self.shape[1]]
 
-    def _geometry(self, batch: int) -> tuple[int, int]:
-        """(windows_per_step, col_groups_per_step): the process-wide tuned
-        cache (tune.autotune_sell) if a same-layout sweep ran, else the
-        bytes-targeting heuristic (tune.sell_geometry)."""
-        from tpusparse import tune
-
-        nb, nt, w, _ = self.vals.shape
-        dt = np.dtype(self.vals.dtype)     # no np.asarray: a device-resident
-        cached = tune.lookup(tune.cache_key(self.vals.shape, dt, batch))  # leaf must not be fetched here
-        if cached is not None:
-            return cached
-        return tune.sell_geometry(nt, nb, w, itemsize=dt.itemsize,
-                                  batch=batch)
-
-    def _run(self, x2d: jax.Array,
-             geometry: tuple[int, int] | None = None) -> jax.Array:
+    def _run(self, x2d: jax.Array) -> jax.Array:
         from tpusparse.kernels.sell_spmv import sell_spmm_padded
 
         mp, _ = self.padded
         if x2d.shape[1] != mp:
             x2d = jnp.pad(x2d, ((0, 0), (0, mp - x2d.shape[1])))
-        tw, jb = geometry if geometry is not None else (
-            self._geometry(x2d.shape[0]))
-        out = sell_spmm_padded(self.idx, self.vals, x2d, w=self.w,
-                               windows_per_step=tw, col_groups_per_step=jb,
-                               scales=self.scales)
-        return out[::_SUB, :self.shape[1]]             # (B, n)
+        out = sell_spmm_padded(self.idx, self.vals, x2d, self.scales)
+        return out[:, :self.shape[1]]                  # (B, n)
 
-    def spmv(self, x: Any,
-             geometry: tuple[int, int] | None = None) -> jax.Array:
-        return self._run(jnp.asarray(x)[None, :], geometry)[0]
+    def spmv(self, x: Any) -> jax.Array:
+        return self._run(jnp.asarray(x)[None, :])[0]
 
-    def spmm(self, x: Any,
-             geometry: tuple[int, int] | None = None) -> jax.Array:
-        return self._run(jnp.asarray(x), geometry)
-
-    def tune(self, x: Any, **kwargs) -> "tune.TuneResult":
-        """On-device geometry sweep for this layout; see tune.autotune_sell.
-        Subsequent spmv/spmm calls on any same-layout matrix use the winner."""
-        from tpusparse import tune
-
-        return tune.autotune_sell(self, x, **kwargs)
+    def spmm(self, x: Any) -> jax.Array:
+        return self._run(jnp.asarray(x))

@@ -2,25 +2,27 @@
 
 Parity target: the reference's TCSRMatrix (tcsr.cpp:5-62) — 32x32 blocks,
 per-block bitmap, *compacted* values, block-CSR offsets — consumed by
-csr_tiling.cu:24-113. Round 1's BsrMatrix kept the block skip but stored
-kept tiles fully dense, so a 30%-full block streamed 3.3x its nnz bytes
-(VERDICT r1 missing #2). This format closes that: every kept 128x128 tile
-is stored in whichever of two tiers costs less on the measured TPU model:
+csr_tiling.cu:24-113. BsrMatrix keeps the block skip but stores kept
+tiles fully dense, so a 30%-full block streams 3.3x its nnz bytes. This
+format closes that: every kept 128x128 tile
+is stored in whichever of two tiers the cost model below prices lower:
 
 - **SELL tier** (the compressed one): (W, 128) packed values + int8
   in-window offsets, bytes = 5*W*128 ∝ in-block nnz, consumed by
-  kernels/bsell_spmv.py (lane gather + MXU ones-reduction).
-- **dense tier**: the plain BSR tile (65536 bytes, MXU dot) — cheaper once
-  W crosses ~102 at B=1, and much earlier for batched SpMM, where the SELL
-  tier pays the VPU lane-gather floor per (slot, batch) element
-  (~205 gathered elements/cycle ≈ 545 byte-equivalents per slot-row per
-  batch column — the measured B-multiplier law, BENCH.md SpMM section).
+  kernels/bsell_spmv.py (in-window gather + reduction).
+- **dense tier**: the plain BSR tile (65536 bytes, one matrix product) —
+  cheaper once W is large, and much earlier for batched SpMM, where the
+  SELL tier pays a gather per (slot, batch) element.
 
 The per-tile choice is the byte/gather-cost argmin over candidate widths —
-the TPU translation of TCSR's "pay only in-block nnz" idea, with the
-reference's in-kernel popcount ranking (csr_tiling.cu:74-89) moved to the
-converter exactly like formats/sell.py. The block-CSR offset array
-(tcsr.cpp:13,34) becomes the scalar-prefetched (bi, bj) coordinate plan.
+TCSR's "pay only in-block nnz" idea, with the reference's in-kernel
+popcount ranking (csr_tiling.cu:74-89) moved to the converter exactly like
+formats/sell.py. The block-CSR offset array (tcsr.cpp:13,34) becomes the
+(bi, bj) coordinate plan.
+
+The cost constants (gather byte-equivalents per slot-row, the tier-split
+charge) were fitted on an earlier accelerator and keep their values until
+they are measured again on this one.
 """
 
 from __future__ import annotations
@@ -38,17 +40,12 @@ _LANES = 128
 _SUB = 8
 
 _SELL_BYTES_PER_W = 5 * _LANES             # fp32 vals + int8 idx per slot-row
-_GATHER_BYTE_EQ_PER_W = 545                # lane-gather floor, byte-equivalents
+_GATHER_BYTE_EQ_PER_W = 545                # gather cost, byte-equivalents
 _DENSE_TILE_BYTES = _LANES * _LANES * 4
-# Running BOTH tier kernels per call costs a measured ~15 us over either
-# single tier on the same bytes (blockpruned-4096 gallery workload: mixed
-# 261 sell + 57 dense = 37-42 us vs 23 us all-sell or all-dense, 3 trials
-# each) — the alternating-kernel dispatch breaks the back-to-back pipeline
-# each tier enjoys alone. Charged as byte-equivalents at the 819 GB/s
-# roofline: 12 MB ~ 15 us, the full measured overhead, so a split must
-# save at least what the alternating dispatch costs before the model
-# accepts it; the r3 gallery misroute (104% regret from a split that
-# saved 0.8 MB) is the case this kills.
+# Running BOTH tiers per call costs a fixed overhead over either single
+# tier on the same bytes; charged as byte-equivalents, so a split must save
+# at least that much before the model accepts it (a split that saves a few
+# hundred KB is not worth a second product).
 _TIER_SPLIT_BYTES = 12 << 20
 
 
@@ -96,11 +93,10 @@ def _tier_cutoff(w_b: np.ndarray, expect_batch: int,
 
 
 def _canonicalize_sell_tiles(s_bi, s_bj, idx, vals, nb: int, w: int):
-    """Scan-path invariants (mirrors bsr._canonicalize_blocks): sorted by
+    """Tile-list invariants (mirrors bsr._canonicalize_blocks): sorted by
     (bj, bi) — already true from np.unique — every output group present
-    (zero tiles inserted), length padded to a step-alignment multiple
-    (8, or 64 for long lists) at the last group so bj stays
-    non-decreasing."""
+    (zero tiles inserted), length padded to an alignment multiple (8, or
+    64 for long lists) at the last group so bj stays non-decreasing."""
     missing = np.setdiff1d(np.arange(nb), s_bj)
     if missing.size:
         ins = np.searchsorted(s_bj, missing)
@@ -109,9 +105,7 @@ def _canonicalize_sell_tiles(s_bi, s_bj, idx, vals, nb: int, w: int):
         zero = np.zeros((missing.size, w, _LANES), vals.dtype)
         idx = np.insert(idx, ins, np.zeros_like(zero, np.int8), axis=0)
         vals = np.insert(vals, ins, zero, axis=0)
-    # pad to a step-size multiple only when the list is long enough for the
-    # tiles-per-step geometry to matter (the kernel's kb adapts to any
-    # divisor; relative padding stays <= 12.5%)
+    # relative padding stays <= 12.5%
     align = 64 if len(s_bj) >= 512 else _SUB
     pad = -len(s_bj) % align if len(s_bj) >= 64 else 0
     if pad:
@@ -296,13 +290,12 @@ class TcsrMatrix:
             x2d = jnp.pad(x2d, ((0, 0), (0, mp - x2d.shape[1])))
         y = None
         if int(self.vals.shape[0]):
-            out = bsell_spmm_padded(self.s_bi, self.s_bj, self.idx,
-                                    self.vals, x2d, w=self.w, n_padded=np_)
-            y = out[::_SUB][:b]
+            y = bsell_spmm_padded(self.s_bi, self.s_bj, self.idx,
+                                  self.vals, x2d, n_padded=np_)
         if self.bsr is not None:
             yd = bsr_spmm_padded(self.bsr.bi, self.bsr.bj, self.bsr.blocks,
                                  x2d, block_m=self.bsr.block_m,
-                                 n_padded=np_)[:b]
+                                 n_padded=np_)
             y = yd if y is None else y + yd
         if y is None:
             y = jnp.zeros((b, np_), x2d.dtype)

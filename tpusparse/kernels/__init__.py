@@ -1,1 +1,1 @@
-from tpusparse.kernels.dense import dense_xla, dense_pallas  # noqa: F401
+from tpusparse.kernels.dense import dense_xla  # noqa: F401

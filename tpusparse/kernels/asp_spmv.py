@@ -1,108 +1,64 @@
-"""Pallas TPU kernel: activation-sparse SpMV/SpMM over dense A ("ASP").
+"""Activation-sparse SpMV/SpMM over dense A ("ASP"), in plain XLA.
 
 The reference's ASP family keeps A fully dense (reordered into blocks,
 asp.cpp:5-13) and skips multiply-accumulates whenever the broadcast x value
-is zero (``cur_x == 0`` skip, asp.cu:20-27) — a per-lane trick that is free
-on SIMT hardware and worthless on a SIMD VPU, where all 128 lanes step
-together whether or not one of them would have skipped.
+is zero (``cur_x == 0`` skip, asp.cu:20-27).
 
-The TPU-native translation exploits X-sparsity at the granularity the
-hardware can actually skip: whole 128-element m-windows. The host computes
-the list of windows where X has any nonzero (the "plan" — O(M) on a vector
-the host already owns); the kernel's grid iterates only over active windows,
-with the scalar-prefetched window list driving the A and X index maps. HBM
-traffic and FLOPs scale with the number of active windows: zero savings on
-i.i.d. random X (every window has survivors — measured and documented), and
-proportional savings on structured activations (ReLU blocks, MoE routing,
-padded batches), which is where the reference's trick actually mattered too.
+Here X-sparsity is exploited at the granularity of whole 128-element
+m-windows: a plan lists the windows where X has any nonzero, the active
+128-row windows of dense A are gathered, and one ``jnp.dot`` at HIGHEST
+precision (a cuBLAS call) multiplies them. Traffic and FLOPs scale with the
+number of active windows: no saving on i.i.d. random X (every window has
+survivors), proportional savings on structured activations (ReLU blocks,
+MoE routing, padded batches). A plan that covers every window skips the
+gather and multiplies A as it is stored.
 
-The dense-A window list trick: A and X are padded with one extra all-zero
-window; plan padding points there, so padded grid steps contribute nothing.
+A and X are padded with one extra all-zero window; the device-side plan
+fills its inactive tail with it, so padded entries contribute nothing.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.kernels.precision import dot3
-from tpusparse.utils import default_interpret, round_up
+from tpusparse.utils import round_up
 
 _LANES = 128
 
 
-def _asp_kernel(win_ref, x_ref, a_ref, o_ref):
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    # 3-pass split-bf16 matmul: fp32 HIGHEST costs 6 MXU passes and left
-    # this kernel compute-bound at 65% of roofline (BENCH.md)
-    o_ref[:] += dot3(
-        x_ref[:], a_ref[:], (((1,), (0,)), ((), ())),
-    ).astype(o_ref.dtype)
+def _dot(x, a):
+    return jnp.dot(x, a, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST).astype(a.dtype)
 
 
-def _asp_pallas(win_ids, grid_t, x_pad, a_pad, *, block_n: int,
-                interpret: bool, na_cost: int):
-    """Shared builder: ``grid_t`` is the contraction grid size — a python
-    int (static exact plan) or a traced int32 scalar (device-computed
-    active count, Mosaic dynamic grid bound)."""
-    b = x_pad.shape[0]
-    n_pad = a_pad.shape[1]
-    grid = (n_pad // block_n, grid_t)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((b, _LANES), lambda j, t, win: (0, win[t])),
-            pl.BlockSpec((_LANES, block_n), lambda j, t, win: (win[t], j)),
-        ],
-        out_specs=pl.BlockSpec((b, block_n), lambda j, t, win: (0, j)),
-    )
-    return pl.pallas_call(
-        _asp_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, n_pad), a_pad.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * na_cost * _LANES * n_pad * b,
-            bytes_accessed=na_cost * _LANES * n_pad * a_pad.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(win_ids, x_pad, a_pad)
+@jax.jit
+def _asp_call(win_ids, x_pad, a_pad):
+    """``x @ A`` over the windows ``win_ids`` of A only."""
+    b, np_ = x_pad.shape[0], a_pad.shape[1]
+    a_w = jnp.take(a_pad.reshape(-1, _LANES, np_), win_ids, axis=0)
+    x_w = jnp.take(x_pad.reshape(b, -1, _LANES), win_ids, axis=1)
+    return _dot(x_w.reshape(b, -1), a_w.reshape(-1, np_))
 
 
-@functools.partial(jax.jit, static_argnames=("block_n", "interpret"))
-def _asp_call(win_ids, x_pad, a_pad, *, block_n: int, interpret: bool):
-    na = win_ids.shape[0]
-    return _asp_pallas(win_ids, na, x_pad, a_pad, block_n=block_n,
-                       interpret=interpret, na_cost=na)
+@jax.jit
+def _asp_call_dense(x_pad, a_pad):
+    """The plan covers every window: multiply A as stored."""
+    return _dot(x_pad, a_pad)
 
 
-@functools.partial(jax.jit, static_argnames=("block_n", "interpret"))
-def _asp_call_dynamic(x_pad, a_pad, *, block_n: int, interpret: bool):
-    """Zero-host-cost dynamic window skip: activity mask, compacted window
-    ids, and count computed on device; the grid's contraction bound is the
-    traced count (see kernels/awsp_spmv.py device_group_plan — same scheme
-    at window granularity). One compile serves every activation pattern —
-    the TPU form of the reference's per-call ``cur_x == 0`` skip
-    (asp.cu:20-27)."""
+@jax.jit
+def _asp_call_dynamic(x_pad, a_pad):
+    """Zero-host-cost window skip: the plan is computed on device (see
+    kernels/awsp_spmv.py device_group_plan, here at window granularity).
+    One compile serves every activation pattern — the XLA form of the
+    reference's per-call ``cur_x == 0`` skip (asp.cu:20-27)."""
     from tpusparse.kernels.awsp_spmv import device_group_plan
 
     nt = a_pad.shape[0] // _LANES - 1            # real windows
-    plan, k = device_group_plan(x_pad, nt, _LANES)
-    return _asp_pallas(plan, k, x_pad, a_pad, block_n=block_n,
-                       interpret=interpret, na_cost=nt)
+    return _asp_call(device_group_plan(x_pad, nt, _LANES), x_pad, a_pad)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -135,8 +91,7 @@ class AspMatrix:
 
     @classmethod
     def from_dense(cls, a: np.ndarray, block_n: int = 2048) -> "AspMatrix":
-        # default block_n: measured 558 GB/s at 512 (256 grid steps pay
-        # ~0.2 us DMA-issue each) vs 751 GB/s at 2048 (BENCH.md)
+        """``block_n``: the column padding quantum of the stored array."""
         a = np.asarray(a)
         m, n = a.shape
         mp, np_ = round_up(m, _LANES), round_up(n, block_n)
@@ -172,8 +127,6 @@ class AspMatrix:
         active = np.nonzero(xw.reshape(nt, _LANES).any(axis=1))[0]
         if active.size == 0:
             active = np.array([nt])                     # only the zero window
-        # exact-sized on purpose: a padded entry pointing at the zero window
-        # would be re-DMAed every step (see formats/awsp.py plan())
         return active.astype(np.int32)
 
     def _full_plan(self) -> np.ndarray:
@@ -184,20 +137,21 @@ class AspMatrix:
     def _run(self, x2d, plan=None) -> jax.Array:
         xj = jnp.asarray(x2d)
         b = xj.shape[0]
-        mp_tot, np_ = self.a_pad.shape
-        xp = jnp.pad(xj, ((0, round_up(max(b, 1), 8) - b),
-                          (0, mp_tot - xj.shape[1])))
+        mp_tot = self.a_pad.shape[0]
+        xp = jnp.pad(xj, ((0, 0), (0, mp_tot - xj.shape[1])))
+        a = jnp.asarray(self.a_pad)
         if (plan is None and isinstance(xj, jax.core.Tracer)) \
                 or (isinstance(plan, str) and plan == "device"):
             # device-side dynamic skip (see _asp_call_dynamic): no host
             # round-trip, one compile for every activation pattern
-            y = _asp_call_dynamic(xp, jnp.asarray(self.a_pad),
-                                  block_n=self.block_n,
-                                  interpret=default_interpret())
-            return y[:b, :self.shape[1]]
-        win = self.plan(np.asarray(x2d)) if plan is None else np.asarray(plan)
-        y = _asp_call(jnp.asarray(win), xp, jnp.asarray(self.a_pad),
-                      block_n=self.block_n, interpret=default_interpret())
+            y = _asp_call_dynamic(xp, a)
+        else:
+            win = self.plan(np.asarray(x2d)) if plan is None \
+                else np.asarray(plan)
+            if win.size == mp_tot // _LANES - 1:      # every window active
+                y = _asp_call_dense(xp, a)
+            else:
+                y = _asp_call(jnp.asarray(win), xp, a)
         return y[:b, :self.shape[1]]
 
     def spmv(self, x, plan=None) -> jax.Array:

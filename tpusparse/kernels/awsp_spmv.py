@@ -1,45 +1,22 @@
-"""Pallas TPU kernel: AWSP — weight-compressed SELL + activation window-skip.
+"""AWSP in plain XLA: weight-compressed SELL + activation window-group skip.
 
 The reference's flagship kernels (awsp.cu:5-317, awsp_ref.cu:6-185) exploit
-BOTH sparsities at once: weight sparsity via bitmap-packed A values and
-activation sparsity via per-lane load/FMA skips when the broadcast x is zero
-(awsp.cu:95-107, awsp_ref.cu:52,96). Per-lane skips are free on SIMT and
-worthless on a SIMD VPU (see asp_spmv.py), so the TPU-native combination is:
+BOTH sparsities at once: weight sparsity via packed A values and activation
+sparsity via skipping work where the broadcast x is zero (awsp.cu:95-107).
+Here:
 
 - weight sparsity: the SELL layout (converter-ranked int8 indices + padded
   values, see sell_spmv.py) — bytes scale with nnz(A);
-- activation sparsity: the ASP window-skip plan (asp_spmv.py) — the grid's
-  contraction dimension enumerates only the m-window GROUPS where X has a
-  survivor, driven by a scalar-prefetched group list. DMA traffic for the
-  values of a skipped group is never issued, so bytes scale with
-  nnz(A restricted to active groups).
-
-Skip granularity is ``group = G x 128`` rows (default G=8, i.e. 1024 rows),
-not a single 128-row window: measured at one window per grid step the
-per-step DMA-issue overhead is ~0.26 us and the kernel runs 4.3x slower than
-SELL on dense plans; at G windows per step the full-plan path matches SELL's
-windows_per_step pipelining. On i.i.d. random X every group has survivors
-and this degenerates to plain SELL (the same honesty note as asp_spmv.py).
-On structured activations (ReLU blocks, MoE routing, padded batches) traffic
-drops proportionally.
+- activation sparsity: a plan of the ``G x 128``-row window groups where X
+  has a survivor. Only those groups are taken from the packed arrays and
+  reduced, so bytes scale with nnz(A restricted to active groups).
 
 Zero-group trick: vals/idx carry one extra all-zero window group at group
-index ``ng`` and X is padded with a matching zero group; an empty plan
-points there, so an all-zero X still has a valid (one-step, zero-result)
-grid. Plans are otherwise EXACT-sized — Mosaic re-issues DMAs for
-dynamically-indexed blocks even when the index repeats, so zero-group
-padding entries would cost real traffic (measured at full-matrix bytes).
-
-Dynamic activations (``awsp_spmm_dynamic``): the reference's headline
-kernels skip x==0 work per-call with zero host preprocessing
-(asp.cu:20-27, awsp.cu:95-107). The TPU equivalent here exploits Mosaic's
-dynamic grid bounds: the group-activity mask, the compacted active-id
-list, AND the active count are computed on device by XLA ops fused around
-the kernel, and the grid's contraction dimension is the *traced* count —
-so only active groups are visited, nothing syncs to the host, and one
-compile serves every activation pattern. The full-length plan's inactive
-tail is never read (the grid stops at k), so the exact-size law above is
-not violated.
+index ``ng`` and X is padded with a matching zero group. An empty plan points
+there, and the device-side plan (``awsp_spmm_dynamic``) fills its inactive
+tail with it: the plan keeps one static length, so one compile serves every
+activation pattern, and the tail's products with the all-zero group add
+nothing to the result (they still cost their gather and reduction).
 """
 
 from __future__ import annotations
@@ -48,142 +25,50 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.kernels.precision import dot2_exact_lhs
-from tpusparse.utils import default_interpret
+from tpusparse.kernels.sell_spmv import gather_reduce, window_src
 
 _LANES = 128
-_SUB = 8
 
 
-def _awsp_kernel(win_ref, idx_ref, val_ref, x_ref, o_ref, *, w: int,
-                 batch: int, g: int, jb: int):
-    # the plan only drives the index maps (win_ref is consumed there)
-    del win_ref
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    ones = jnp.ones((_SUB, w), jnp.float32)
-    for jj in range(jb):                     # column groups per step
-        for b in range(batch):
-            acc = jnp.zeros((_SUB, _LANES), jnp.float32)
-            for t in range(g):               # windows per skippable group
-                idx = idx_ref[jj, t].astype(jnp.int32)        # (W, 128)
-                # bf16 storage widens here; accumulation stays fp32
-                vals = val_ref[jj, t].astype(jnp.float32)     # (W, 128)
-                xw = x_ref[b:b + 1, t * _LANES:(t + 1) * _LANES]
-                xg = jnp.take_along_axis(
-                    jnp.broadcast_to(xw, (w, _LANES)), idx, axis=1)
-                # 2-pass MXU reduction, see sell_spmv.py
-                acc = acc + dot2_exact_lhs(
-                    ones, vals * xg, (((1,), (0,)), ((), ())))
-            o_ref[b * _SUB:(b + 1) * _SUB,
-                  jj * _LANES:(jj + 1) * _LANES] += acc.astype(o_ref.dtype)
-
-
-def _awsp_call(win, grid_t, idx, vals, x, *, w: int, g: int,
-               jb: int | None, interpret: bool | None, na_cost: int):
-    """Shared pallas_call builder. ``grid_t`` is the contraction grid size:
-    a python int (static exact-sized plan) or a traced int32 scalar (the
-    device-computed active count — Mosaic dynamic grid bound). ``na_cost``
-    is the static step count the CostEstimate assumes (the plan length, or
-    the group count as an upper bound for the dynamic path)."""
-    if interpret is None:
-        interpret = default_interpret()
-    nb = vals.shape[0]
-    b = x.shape[0]
-    from tpusparse.tune import _snap, blocks_per_step
-
-    if jb is None:
-        # bytes-targeting default (same rule as tune.sell_geometry): a step
-        # streams jb x g x w x 128 vals+idx; aim for >= ~1 MB per step,
-        # capped by the double-buffered VMEM budget
-        per_g = g * w * _LANES * (vals.dtype.itemsize + 1)
-        jb = blocks_per_step(per_g, nb, cap=max(1, (6 << 20) // per_g))
-    else:
-        # snap explicit requests to the largest divisor of nb (degrade
-        # gracefully on small or awkward column-group counts)
-        jb = _snap(jb, nb)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nb // jb, grid_t),
-        in_specs=[
-            pl.BlockSpec((jb, g, w, _LANES), lambda j, t, win: (j, win[t], 0, 0)),
-            pl.BlockSpec((jb, g, w, _LANES), lambda j, t, win: (j, win[t], 0, 0)),
-            pl.BlockSpec((b, g * _LANES), lambda j, t, win: (0, win[t])),
-        ],
-        out_specs=pl.BlockSpec((b * _SUB, jb * _LANES),
-                               lambda j, t, win: (0, j)),
-    )
-    return pl.pallas_call(
-        functools.partial(_awsp_kernel, w=w, batch=b, g=g, jb=jb),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b * _SUB, nb * _LANES), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nb * na_cost * g * w * _LANES * b,
-            bytes_accessed=nb * na_cost * g * w * _LANES
-            * (vals.dtype.itemsize + 1),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(win, idx, vals, x)
-
-
-@functools.partial(jax.jit, static_argnames=("w", "g", "jb", "interpret"))
+@functools.partial(jax.jit, static_argnames=("g",))
 def awsp_spmm_padded(
     win: jax.Array,      # (na,) int32 active-group ids; pads point at ng
     idx: jax.Array,      # (nb, (ng + 1) * G, W, 128) int8 — last group zero
     vals: jax.Array,     # (nb, (ng + 1) * G, W, 128) — last group zero
     x: jax.Array,        # (B, (ng + 1) * G * 128) — last group zero
     *,
-    w: int,
     g: int,
-    jb: int | None = None,
-    interpret: bool | None = None,
-) -> jax.Array:          # (B * 8, N_padded): row b*8 holds y_b
-    na = win.shape[0]
-    return _awsp_call(win, na, idx, vals, x, w=w, g=g, jb=jb,
-                      interpret=interpret, na_cost=na)
+) -> jax.Array:          # (B, N_padded)
+    nb = vals.shape[0]
+    windows = (win.astype(jnp.int32)[:, None] * g
+               + jnp.arange(g, dtype=jnp.int32)).reshape(-1)
+    src = window_src(jnp.take(idx, windows, axis=1), windows)
+    y = gather_reduce(src, jnp.take(vals, windows, axis=1), x, axes=(1, 2))
+    return y.reshape(nb * _LANES, -1).T.astype(x.dtype)
 
 
-def device_group_plan(x: jax.Array, ng: int,
-                      span: int) -> tuple[jax.Array, jax.Array]:
-    """Device-side activation plan: ``(plan, k)`` where ``plan`` is the
-    (ng,)-length active-first compaction of group ids (inactive tail set to
-    the zero group ``ng``) and ``k`` is the traced active count, clamped to
-    >= 1 so an all-zero X still runs the one zero-group step. The whole
-    thing is a handful of VPU ops over X's bytes — the skip decision the
-    reference makes per-element in-kernel (asp.cu:20-27), made per-group
-    by XLA with no host round-trip."""
+def device_group_plan(x: jax.Array, ng: int, span: int) -> jax.Array:
+    """Device-side activation plan: the (ng,) active group ids in
+    ascending order, the inactive tail set to the zero group ``ng``. The
+    skip decision the reference makes per element in-kernel
+    (asp.cu:20-27), made per group by XLA with no host round-trip."""
     rows = ng * span
     act = (x[:, :rows] != 0).reshape(x.shape[0], ng, span).any(axis=(0, 2))
-    count = jnp.sum(act).astype(jnp.int32)
-    ids = jnp.argsort(~act).astype(jnp.int32)     # stable: active ids first
-    plan = jnp.where(jnp.arange(ng) < count, ids, ng).astype(jnp.int32)
-    return plan, jnp.maximum(count, 1)
+    return jnp.nonzero(act, size=ng, fill_value=ng)[0].astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("w", "g", "jb", "interpret"))
+@functools.partial(jax.jit, static_argnames=("g",))
 def awsp_spmm_dynamic(
     idx: jax.Array,      # (nb, (ng + 1) * G, W, 128) int8 — last group zero
     vals: jax.Array,     # (nb, (ng + 1) * G, W, 128) — last group zero
     x: jax.Array,        # (B, (ng + 1) * G * 128) — last group zero
     *,
-    w: int,
     g: int,
-    jb: int | None = None,
-    interpret: bool | None = None,
-) -> jax.Array:          # (B * 8, N_padded): row b*8 holds y_b
-    """Zero-host-cost dynamic activation skip (module docstring): plan and
-    active count computed on device, grid bound by the traced count. One
-    compile serves every activation pattern of this layout."""
+) -> jax.Array:          # (B, N_padded)
+    """Zero-host-cost activation skip: the plan is computed on device
+    (``device_group_plan``); one compile serves every activation pattern
+    of this layout."""
     ng = vals.shape[1] // g - 1
-    plan, k = device_group_plan(x, ng, g * _LANES)
-    return _awsp_call(plan, k, idx, vals, x, w=w, g=g, jb=jb,
-                      interpret=interpret, na_cost=ng)
+    plan = device_group_plan(x, ng, g * _LANES)
+    return awsp_spmm_padded(plan, idx, vals, x, g=g)

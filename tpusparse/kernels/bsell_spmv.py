@@ -1,21 +1,12 @@
-"""Pallas TPU kernel: block-skip SELL tiles (the compressed tier of TCSR).
+"""Block-skip SELL tiles (the compressed tier of TCSR) in plain XLA.
 
-TPU carrier of the reference's TCSR intra-block compaction (tcsr.cpp:13-34:
-per-32x32-block bitmap + compacted values + block-CSR offsets). Round 1's
-BSR kept *dense* tiles only, so a 30%-full block streamed 3.3x its nnz bytes
-(VERDICT r1 missing #2); this kernel streams (W x 128) SELL-packed tiles —
-int8 in-window indices + values, bytes ∝ in-block nnz — and consumes them
-with the proven SELL recipe (lane gather + ones-matmul MXU reduction,
-kernels/sell_spmv.py). Tile list and coordinates ride the same
-scalar-prefetch machinery as kernels/bsr_spmv.py; the block-CSR offset array
-of the reference becomes the (bi, bj) coordinate plan.
-
-Two shapes, mirroring bsr_spmv:
-- wide (default): X and Y whole in VMEM, ``kb`` tiles per grid step (big
-  steps amortize the ~0.2-0.5 us DMA-issue overhead; see BENCH.md).
-- scan (huge N*B fallback): one tile per step, output revisiting via sorted
-  bj with first-visit init — requires every output group to appear in the
-  tile list (the converter inserts zero tiles for empty groups).
+Carrier of the reference's TCSR intra-block compaction (tcsr.cpp:13-34:
+per-32x32-block bitmap + compacted values + block-CSR offsets). Each kept
+tile is a (W x 128) SELL-packed slab — int8 in-window indices + values,
+bytes ∝ in-block nnz — consumed with the SELL form (kernels/sell_spmv.py):
+gather ``x[bi*128 + idx]``, multiply, reduce over W. The per-tile sums land
+in their output groups with one ``segment_sum`` over the sorted ``bj`` list;
+the block-CSR offset array of the reference becomes that (bi, bj) plan.
 """
 
 from __future__ import annotations
@@ -24,70 +15,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.kernels.precision import dot2_exact_lhs
-from tpusparse.utils import default_interpret
+from tpusparse.kernels.sell_spmv import gather_reduce, window_src
 
 _LANES = 128
-_SUB = 8
-
-# same budget as bsr_spmv: beyond this X+Y would crowd the ~16 MB VMEM
-# window shared with the double-buffered tile stream
-_WIDE_VMEM_LIMIT = 8 * 1024 * 1024
 
 
-def _tile_product(idx, vals, xw, ones, w):
-    """(W, 128) packed tile x (1, 128) x-window -> (8, 128) sum rows."""
-    xg = jnp.take_along_axis(jnp.broadcast_to(xw, (w, _LANES)), idx, axis=1)
-    # reduce the W sublanes on the MXU; the exact-bf16 ones lhs makes two
-    # passes match fp32 HIGHEST (kernels/precision.py)
-    return dot2_exact_lhs(ones, vals * xg, (((1,), (0,)), ((), ())))
-
-
-def _bsell_kernel_wide(bi_ref, bj_ref, idx_ref, val_ref, x_ref, o_ref, *,
-                       kb: int, w: int, batch: int):
-    k = pl.program_id(0)
-
-    @pl.when(k == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    ones = jnp.ones((_SUB, w), jnp.float32)
-    for i in range(kb):
-        g = k * kb + i
-        bi = bi_ref[g]
-        bj = bj_ref[g]
-        idx = idx_ref[i].astype(jnp.int32)                 # (W, 128)
-        vals = val_ref[i].astype(jnp.float32)
-        cols = pl.dslice(bj * _LANES, _LANES)
-        for b in range(batch):
-            xw = x_ref[b:b + 1, pl.dslice(bi * _LANES, _LANES)]
-            acc = _tile_product(idx, vals, xw, ones, w)
-            o_ref[b * _SUB:(b + 1) * _SUB, cols] += acc.astype(o_ref.dtype)
-
-
-def _bsell_kernel_scan(bi_ref, bj_ref, idx_ref, val_ref, x_ref, o_ref, *,
-                       w: int, batch: int):
-    k = pl.program_id(0)
-    prev = jnp.maximum(k - 1, 0)
-    first = jnp.logical_or(k == 0, bj_ref[k] != bj_ref[prev])
-
-    @pl.when(first)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    ones = jnp.ones((_SUB, w), jnp.float32)
-    idx = idx_ref[0].astype(jnp.int32)
-    vals = val_ref[0].astype(jnp.float32)
-    for b in range(batch):
-        xw = x_ref[b:b + 1, :]
-        acc = _tile_product(idx, vals, xw, ones, w)
-        o_ref[b * _SUB:(b + 1) * _SUB, :] += acc.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("w", "n_padded", "interpret"))
+@functools.partial(jax.jit, static_argnames=("n_padded",))
 def bsell_spmm_padded(
     bi: jax.Array,       # (nblk,) int32 — contraction window index
     bj: jax.Array,       # (nblk,) int32 — output group index, non-decreasing
@@ -95,59 +29,9 @@ def bsell_spmm_padded(
     vals: jax.Array,     # (nblk, W, 128)
     x: jax.Array,        # (B, M_padded)
     *,
-    w: int,
     n_padded: int,
-    interpret: bool | None = None,
-) -> jax.Array:          # (B * 8, N_padded): row b*8 holds y_b
-    if interpret is None:
-        interpret = default_interpret()
-    nblk = vals.shape[0]
-    b = x.shape[0]
-
-    if (x.size + n_padded * b * _SUB) * x.dtype.itemsize <= _WIDE_VMEM_LIMIT:
-        # tiles per step: the shared bytes-targeting rule, capped at 64 to
-        # bound the unrolled body; pack-time alignment of long tile lists
-        # keeps the snap effective
-        from tpusparse.tune import blocks_per_step
-
-        kb = blocks_per_step(w * _LANES * (vals.dtype.itemsize + 1),
-                             nblk, cap=64)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nblk // kb,),
-            in_specs=[
-                pl.BlockSpec((kb, w, _LANES), lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec((kb, w, _LANES), lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec(x.shape, lambda k, bi, bj: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((b * _SUB, n_padded),
-                                   lambda k, bi, bj: (0, 0)),
-        )
-        kernel = functools.partial(_bsell_kernel_wide, kb=kb, w=w, batch=b)
-    else:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nblk,),
-            in_specs=[
-                pl.BlockSpec((1, w, _LANES), lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec((1, w, _LANES), lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec((b, _LANES), lambda k, bi, bj: (0, bi[k])),
-            ],
-            out_specs=pl.BlockSpec((b * _SUB, _LANES),
-                                   lambda k, bi, bj: (0, bj[k])),
-        )
-        kernel = functools.partial(_bsell_kernel_scan, w=w, batch=b)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b * _SUB, n_padded), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(vals.size) * b,
-            bytes_accessed=int(vals.size * vals.dtype.itemsize + idx.size),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(bi, bj, idx, vals, x)
+) -> jax.Array:          # (B, N_padded)
+    part = gather_reduce(window_src(idx, bi), vals, x, axes=(1,))
+    y = jax.ops.segment_sum(part, bj, num_segments=n_padded // _LANES,
+                            indices_are_sorted=True)        # (nb, 128, B)
+    return y.reshape(n_padded, -1).T.astype(x.dtype)

@@ -1,29 +1,15 @@
-"""Pallas TPU kernel: BSR block-skip SpMV/SpMM via scalar-prefetch grid.
+"""BSR block-skip SpMV/SpMM in plain XLA.
 
-TPU re-design of the reference's TCSR/csr_tiling path (csr_tiling.cu:24-113):
+Re-design of the reference's TCSR/csr_tiling path (csr_tiling.cu:24-113):
 the reference stored a bitmap + compacted values per 32x32 block and
-decompressed every block; here blocks are MXU-sized dense tiles and *empty
-blocks are never touched at all* — HBM traffic and FLOPs scale with the
-number of stored blocks. This is the natural SpMM path (multi-column X on
-the MXU) and the big win for block-structured sparsity, where SELL's
-per-element indices pay for structure they don't need.
+decompressed every block; here blocks are dense (block_m x 128) tiles and
+empty blocks are never touched — traffic and FLOPs scale with the number of
+stored blocks.
 
-Two kernel shapes, picked by operand size:
-
-- wide (default): X and Y are small relative to the tiles (a (4096, 8) X is
-  128 KB), so both live WHOLE in VMEM as constant-index blocks; only the
-  tile stream pays HBM traffic, ``kb`` tiles per grid step, with
-  scalar-prefetched (bi, bj) coordinates consumed by in-kernel dynamic
-  slices. Measured steps to speed-of-light on the canonical workload
-  (BENCH.md): one tile per step pays ~0.5 us DMA-issue overhead each (40%
-  of roofline); 8 tiles/step with `Precision.HIGHEST` dots is MXU-bound at
-  ~55% (a fp32-HIGHEST (512x128)@(512x8) dot spends 6 passes loading a
-  128-wide weight tile for 8 output columns); a manual 3-pass split-bf16
-  dot (hi/lo decomposition, drop lo*lo — Mosaic has no Precision.HIGH) in
-  the batch-major orientation reaches 97-98% of roofline at max|err|
-  ~2e-4, 5x inside the reference's 1e-3 tolerance (tester.cpp:75).
-- scan (fallback for huge N*B): one tile per step, fp32 HIGHEST, output
-  tile revisiting via sorted bj — correct everywhere, slower.
+Each kept block multiplies its slice of X in one batched ``dot_general`` at
+HIGHEST precision (fp32 operands would otherwise run in TF32), and the
+per-block products are summed into their output groups with one
+``segment_sum`` over the sorted ``bj`` list.
 """
 
 from __future__ import annotations
@@ -32,126 +18,25 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpusparse.kernels.precision import dot3
-from tpusparse.utils import default_interpret
 
 _LANES = 128
 
-# beyond this many bytes of X+Y the wide kernel would crowd VMEM (~128 MB
-# on v5e, 16 MB scoped per kernel by default, shared with the
-# double-buffered tile stream)
-_WIDE_VMEM_LIMIT = 8 * 1024 * 1024
 
-
-def _bsr_kernel_wide(bi_ref, bj_ref, blk_ref, x_ref, o_ref, *, kb: int,
-                     block_m: int):
-    k = pl.program_id(0)
-
-    @pl.when(k == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    for i in range(kb):
-        g = k * kb + i
-        bi = bi_ref[g]
-        bj = bj_ref[g]
-        blk = blk_ref[i]                                  # (TBm, 128)
-        # x is stored transposed (M, B): the dynamic slice runs along
-        # sublanes and the dot is batch-major — out (B, 128) keeps the MXU
-        # streaming the big operand instead of reloading it as weights
-        xs = x_ref[pl.dslice(bi * block_m, block_m), :]   # (TBm, B)
-        acc = dot3(xs, blk, (((0,), (0,)), ((), ())))     # (B, 128)
-        cols = pl.dslice(bj * _LANES, _LANES)
-        o_ref[:, cols] += acc.astype(o_ref.dtype)
-
-
-def _bsr_kernel_scan(bi_ref, bj_ref, blk_ref, x_ref, o_ref):
-    k = pl.program_id(0)
-    prev = jnp.maximum(k - 1, 0)
-    first = jnp.logical_or(k == 0, bj_ref[k] != bj_ref[prev])
-
-    @pl.when(first)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    blk = blk_ref[0]                                      # (TBm, 128)
-    xb = x_ref[:]                                         # (B, TBm)
-    o_ref[:] += jax.lax.dot_general(
-        xb, blk, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    ).astype(o_ref.dtype)                                 # (B, 128)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "n_padded", "interpret"))
+@functools.partial(jax.jit, static_argnames=("block_m", "n_padded"))
 def bsr_spmm_padded(
     bi: jax.Array,       # (nblk,) int32 — contraction block index
     bj: jax.Array,       # (nblk,) int32 — output block index, non-decreasing
-    blocks: jax.Array,   # (nblk, TBm, 128); nblk padded to a multiple of 8
+    blocks: jax.Array,   # (nblk, TBm, 128)
     x: jax.Array,        # (B, M_padded)
     *,
     block_m: int,
     n_padded: int,
-    interpret: bool | None = None,
-) -> jax.Array:          # (B8, N_padded)
-    if interpret is None:
-        interpret = default_interpret()
-    nblk = blocks.shape[0]
+) -> jax.Array:          # (B, N_padded)
     b = x.shape[0]
-    if b % 8:
-        x = jnp.pad(x, ((0, 8 - b % 8), (0, 0)))          # MXU-friendly batch
-        b = x.shape[0]
-
-    if (x.size + n_padded * b) * x.dtype.itemsize <= _WIDE_VMEM_LIMIT:
-        # blocks per step: the shared bytes-targeting rule (~1 MB steps; a
-        # 128x128 fp32 tile is 64 KB), snapped to a divisor of the padded
-        # block count
-        from tpusparse.tune import blocks_per_step
-
-        kb = blocks_per_step(block_m * _LANES * blocks.dtype.itemsize,
-                             nblk, cap=32)
-        xt = x.T                                          # (M_padded, B)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nblk // kb,),
-            in_specs=[
-                pl.BlockSpec((kb, block_m, _LANES),
-                             lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec(xt.shape, lambda k, bi, bj: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((b, n_padded), lambda k, bi, bj: (0, 0)),
-        )
-        kernel = functools.partial(_bsr_kernel_wide, kb=kb, block_m=block_m)
-        operands = (bi, bj, blocks, xt)
-    else:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nblk,),
-            in_specs=[
-                pl.BlockSpec((1, block_m, _LANES),
-                             lambda k, bi, bj: (k, 0, 0)),
-                pl.BlockSpec((b, block_m),
-                             lambda k, bi, bj: (0, bi[k])),
-            ],
-            out_specs=pl.BlockSpec((b, _LANES),
-                                   lambda k, bi, bj: (0, bj[k])),
-        )
-        kernel = _bsr_kernel_scan
-        operands = (bi, bj, blocks, x)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, n_padded), blocks.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(blocks.size) * b,
-            bytes_accessed=int(blocks.size * blocks.dtype.itemsize),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
+    xs = jnp.take(x.reshape(b, -1, block_m), bi, axis=1, mode="clip")
+    prod = jnp.einsum("bkm,kmn->kbn", xs, blocks,
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)  # (nblk, B, 128)
+    y = jax.ops.segment_sum(prod, bj, num_segments=n_padded // _LANES,
+                            indices_are_sorted=True)        # (nb, B, 128)
+    return jnp.moveaxis(y, 1, 0).reshape(b, n_padded).astype(x.dtype)

@@ -1,114 +1,30 @@
 """Dense baselines: ``Y = X @ A`` with dense A.
 
-Equivalents of the reference's three dense paths (SURVEY.md §2.2):
-
-- ``dense_xla``    <-> cuBLAS baseline (cublas.cu:33) — let the vendor library
-  (here: XLA onto the MXU) do it.
-- ``dense_pallas`` <-> naive/tiled kernels (naive.cu:4, tiling_smem.cu:4) —
-  a hand-tiled kernel, K-tiles staged in fast memory. On TPU the "shared
-  memory staging" of tiling_smem.cu is Mosaic's automatic HBM->VMEM pipeline
-  over the BlockSpec grid; the kernel body only expresses tile math.
-
-Both accept X as (M,) (SpMV) or (B, M) (SpMM) and are the correctness anchors
-and the performance bar every sparse kernel must beat on its own bytes.
+``dense_xla`` is the counterpart of the reference's cuBLAS baseline
+(cublas.cu:33): XLA hands the product to cuBLAS. It accepts X as (M,)
+(SpMV) or (B, M) (SpMM) and is the correctness anchor and the performance
+bar every sparse format must beat on its own bytes.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpusparse.kernels.precision import dot3
-from tpusparse.utils import cdiv, default_interpret
 
 
-# fp32 matmuls on the MXU default to bf16 passes (~1e-2 abs error at 4096
-# terms) which busts the reference's 1e-3 tolerance (tester.cpp:75); HIGHEST
-# forces full fp32 accuracy. GEMV is HBM-bound so the extra MXU passes are
+# fp32 matmuls may run in TF32 by default (~1e-3 relative error per term,
+# which busts the reference's 1e-3 tolerance, tester.cpp:75, at 4096 terms);
+# HIGHEST keeps full fp32. GEMV is memory-bound, so the extra passes are
 # free in wall-clock.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
 @jax.jit
 def dense_xla(a: jax.Array, x: jax.Array) -> jax.Array:
-    """XLA/MXU dense baseline. x: (m,) or (b, m); a: (m, n)."""
+    """XLA dense baseline. x: (m,) or (b, m); a: (m, n)."""
     squeeze = x.ndim == 1
     xb = x[None, :] if squeeze else x
     y = jnp.dot(xb, a, preferred_element_type=jnp.float32,
                 precision=_PRECISION).astype(a.dtype)
     return y[0] if squeeze else y
 
-
-def _dense_kernel(x_ref, a_ref, o_ref):
-    # grid = (n_tiles, m_tiles); m (contraction) is the inner, "arbitrary" dim
-    # so the output tile stays resident in VMEM across the K loop.
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    # 3-pass split-bf16 (kernels/precision.py): Mosaic's HIGHEST costs 6 MXU
-    # passes and left this kernel at 89% of roofline
-    o_ref[:] += dot3(
-        x_ref[:], a_ref[:], (((1,), (0,)), ((), ())),
-    ).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "block_m", "block_n", "vmem_limit_mb", "interpret"))
-def dense_pallas(
-    a: jax.Array,
-    x: jax.Array,
-    *,
-    block_m: int = 512,
-    block_n: int = 1024,
-    vmem_limit_mb: int | None = None,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Hand-tiled dense GEMV/GEMM in Pallas. x: (m,) or (b, m); a: (m, n)."""
-    if interpret is None:
-        interpret = default_interpret()
-    squeeze = x.ndim == 1
-    xb = x[None, :] if squeeze else x
-    b, m = xb.shape
-    m2, n = a.shape
-    assert m == m2, (xb.shape, a.shape)
-    block_m = min(block_m, m)
-    block_n = min(block_n, n)
-    # pad to block multiples: the grid uses cdiv, and unmasked tail blocks
-    # would read past the arrays (zero padding contributes exactly 0)
-    mp = cdiv(m, block_m) * block_m
-    np_ = cdiv(n, block_n) * block_n
-    if (mp, np_) != (m, n):
-        a = jnp.pad(a, ((0, mp - m), (0, np_ - n)))
-        xb = jnp.pad(xb, ((0, 0), (0, mp - m)))
-    grid = (np_ // block_n, mp // block_m)
-
-    y = pl.pallas_call(
-        _dense_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((b, block_m), lambda j, k: (0, k)),
-            pl.BlockSpec((block_m, block_n), lambda j, k: (k, j)),
-        ],
-        out_specs=pl.BlockSpec((b, block_n), lambda j, k: (0, j)),
-        out_shape=jax.ShapeDtypeStruct((b, np_), a.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            # big-block shapes (>=8 MB: double-buffering alone exceeds the
-            # 16 MB default scoped-vmem budget) need the limit raised
-            vmem_limit_bytes=None if vmem_limit_mb is None
-            else vmem_limit_mb << 20,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * m * n,
-            bytes_accessed=m * n * a.dtype.itemsize + b * (m + n) * a.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(xb, a)
-    y = y[:, :n]
-    return y[0] if squeeze else y

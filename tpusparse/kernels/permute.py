@@ -1,18 +1,15 @@
-"""Pallas TPU kernel: static column permutation without XLA's serial gather.
+"""Static column permutation of a product's output.
 
-XLA lowers a 4096-lane ``jnp.take`` to a near-serial gather (~20-35 us
-measured — a third of binned SELL's whole powerlaw SpMV; gather hints
-``unique_indices``/``indices_are_sorted`` change nothing). For a STATIC
-permutation the converter can do better: decompose target lane ``p`` into
-(source group g, in-group offset o) and precompute
+Formats that sort or re-place output columns (binned SELL, RSELL's sorted
+and sharded packs) undo that placement once per call. ``permute_plan``
+packs the permutation as (source group, in-group offset) planes:
 
 - ``oidx[h, c]`` — in-group offset of the source of output lane (h, c);
 - ``oh[h, g, c]`` — 1.0 iff output lane (h, c) sources from group g.
 
-The kernel then runs, per 8 output groups at once (sublane-batched),
-``acc += take_along_axis(seg_g, oidx) * oh[:, g]`` over source groups —
-in-VREG lane shuffles plus masked accumulate, ~2 VREG-ops per (h-block, g).
-Measured ~5 us end-to-end vs ~32 us for the XLA gather.
+``apply_permutation`` recovers each output lane's source index from the
+planes and applies it with one ``jnp.take``; lanes with no source (the
+padding) come out zero.
 """
 
 from __future__ import annotations
@@ -23,13 +20,11 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.utils import default_interpret, round_up
+from tpusparse.utils import round_up
 
 _LANES = 128
-_HB = 8          # output groups per grid step (sublane batch)
+_HB = 8          # output-group padding quantum of the plan planes
 
 
 def permute_plan(perm_src: np.ndarray, src_size: int | None = None) -> dict:
@@ -59,56 +54,12 @@ def permute_plan(perm_src: np.ndarray, src_size: int | None = None) -> dict:
     return dict(oidx=oidx, oh=oh, n=n, np_=np_, nb=nb)
 
 
-def _permute_kernel(oidx_ref, oh_ref, y_ref, o_ref, *, nb: int, b: int):
-    idx8 = oidx_ref[...].astype(jnp.int32)           # (8, 128)
-    for b_i in range(b):
-        acc = jnp.zeros((_HB, _LANES), jnp.float32)
-        for g in range(nb):
-            seg = y_ref[b_i:b_i + 1, g * _LANES:(g + 1) * _LANES]
-            gath = jnp.take_along_axis(
-                jnp.broadcast_to(seg, (_HB, _LANES)), idx8, axis=1)
-            acc = acc + gath * oh_ref[:, g, :]
-        o_ref[b_i * _HB:(b_i + 1) * _HB, :] = acc.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def permute_columns(
-    y: jax.Array,        # (B, np_)
-    oidx: jax.Array,     # (nbp, 128) int8
-    oh: jax.Array,       # (nbp, nb, 128) fp32
-    *,
-    interpret: bool | None = None,
-) -> jax.Array:          # (B * 8, nbp * 128): row b*8 block h holds out
-    if interpret is None:
-        interpret = default_interpret()
-    b = y.shape[0]
-    nbp, nb = oh.shape[0], oh.shape[1]
-    out = pl.pallas_call(
-        functools.partial(_permute_kernel, nb=nb, b=b),
-        grid=(nbp // _HB,),
-        in_specs=[
-            pl.BlockSpec((_HB, _LANES), lambda h: (h, 0)),
-            pl.BlockSpec((_HB, nb, _LANES), lambda h: (h, 0, 0)),
-            pl.BlockSpec(y.shape, lambda h: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((b * _HB, _LANES), lambda h: (0, h)),
-        out_shape=jax.ShapeDtypeStruct(
-            (b * _HB, (nbp // _HB) * _LANES), y.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=interpret,
-    )(oidx, oh, y)
-    return out
-
-
+@functools.partial(jax.jit, static_argnames=("n",))
 def apply_permutation(y2d: jax.Array, plan_arrays: tuple, n: int):
-    """y2d (B, np_) -> (B, n) permuted output via the Pallas kernel."""
+    """y2d (B, np_) -> (B, n) permuted output."""
     oidx, oh = plan_arrays
-    out = permute_columns(y2d, oidx, oh)
-    b = y2d.shape[0]
     nbp = oh.shape[0]
-    # out[b_i*8 + s, h*128 + c] holds output group (h*8 + s), lane c
-    out = out.reshape(b, _HB, nbp // _HB, _LANES)
-    out = out.transpose(0, 2, 1, 3).reshape(b, nbp * _LANES)
-    return out[:, :n]
+    src = jnp.argmax(oh, axis=1) * _LANES + oidx.astype(jnp.int32)
+    live = jnp.any(oh != 0, axis=1).reshape(nbp * _LANES)
+    y = jnp.take(y2d, src.reshape(nbp * _LANES), axis=1, mode="clip")
+    return jnp.where(live, y, 0)[:, :n]

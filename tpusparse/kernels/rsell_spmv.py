@@ -1,27 +1,26 @@
-"""Pallas TPU kernel: ragged SELL as a stream of 8-slot chunks.
+"""Ragged SELL as a stream of 8-slot chunks, in plain XLA.
 
 SELL (kernels/sell_spmv.py) pays one GLOBAL width W for every (window,
 column-group) tile; binned SELL recovers some of that with 2-3 bucket
-widths. This kernel removes the shape constraint entirely: the converter
-emits, per kept tile, ceil(tile_demand / 8) chunks of (8 slots x 128
-lanes), and the kernel consumes a flat chunk stream whose (group, window)
-coordinates ride scalar prefetch — the same plan machinery as
-kernels/bsr_spmv.py. Consequences:
+widths. RSELL removes the shape constraint: the converter emits, per kept
+tile, ceil(tile_demand / 8) chunks of (8 slots x 128 lanes), each tagged
+with its output group ``cj`` and contraction window ``ct``. Consequences:
 
 - per-TILE padding only (to 8 slots): strictly fewer bytes than SELL's
   global W or binned's bucket widths on skewed matrices;
 - all-zero tiles emit no chunks at all (block skip for free);
 - chunk counts are DATA, not shapes: shards of different raggedness run one
   uniform program — per-shard loads are balanced by assignment and padded
-  with zero chunks (idx=0, val=0 gathers add 0.0), killing the divisibility
-  ValueErrors of the shape-based sharded paths (VERDICT r1 missing #3).
+  with zero chunks (idx=0, val=0 gathers add 0.0).
+
+The product gathers ``x[ct*128 + idx]`` per slot, sums each chunk's 8 slots
+and adds the chunk sums into their output groups with one ``segment_sum``
+by ``cj`` (pad chunks point at group 0 with zero values, so the list is not
+sorted).
 
 Ancestry: per-warp ragged padding + per-warp base offsets of the
 reference's AWSPRefMatrix (awsp_ref.cpp:25-40) — the chunk stream is the
 chip-level generalization where every tile gets its own "warp max".
-
-X and Y live whole in VMEM (wide shape only): a (B, 4096) X at B<=32 is
-<=512 KB. For huge N*B use SELL/TCSR instead; the format raises early.
 """
 
 from __future__ import annotations
@@ -30,93 +29,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.kernels.precision import dot2_exact_lhs
-from tpusparse.utils import default_interpret
+from tpusparse.kernels.sell_spmv import gather_reduce, window_src
 
 _LANES = 128
-_SUB = 8
-
-_WIDE_VMEM_LIMIT = 8 * 1024 * 1024      # comfort zone: no limit override
-_WIDE_VMEM_CAP = 96 * 1024 * 1024        # hard cap (v5e VMEM is 128 MB)
-_SMEM_PLAN_CHUNKS = 192_000   # packed int32 plan must fit ~1 MB SMEM
 
 
-def wide_fits(m: int, n: int, batch: int = 1) -> bool:
-    """True when the wide kernel's whole-in-VMEM X/Y budget admits a
-    (batch, m) x (m, n) product — the SAME formula the kernel enforces
-    below, exported so carrier-choosing callers (amg._pack) cannot
-    drift from it."""
-    from tpusparse.utils import round_up
-
-    need = (batch * round_up(m, _LANES)
-            + round_up(n, _LANES) * batch * _SUB) * 4
-    return need <= _WIDE_VMEM_CAP
-
-
-def _rsell_kernel(cjct_ref, idx_ref, val_ref, x_ref, o_ref, *,
-                  c: int, batch: int, run: int):
-    k = pl.program_id(0)
-
-    @pl.when(k == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    ones = jnp.ones((_SUB, _SUB), jnp.float32)
-    if run > 1:
-        # Run-aligned body (r5, VERDICT r4 item 2): the pack guarantees
-        # every ``run``-chunk sub-block shares one output group cj, so the
-        # kernel accumulates the run's products elementwise in a VREG and
-        # pays ONE ones-matmul + ONE dynamic-offset output RMW per run
-        # instead of per chunk. Measured at the 1.45 GB synthetic config
-        # (scripts/rsell_overlap_study.py, data/rsell_overlap.json): the
-        # flat body's per-chunk dynamic RMW cannot be register-allocated
-        # by Mosaic (a VMEM load+store pair per chunk, +509 us over the
-        # static-store ablation); the run body reads 2019 us = 1.14x the
-        # bytes floor vs 2690 flat and 3194 in the r4 production record.
-        for r in range(c // run):
-            base = k * c + r * run
-            cj = jax.lax.shift_right_logical(cjct_ref[base], 16)
-            cols = pl.dslice(cj * _LANES, _LANES)
-            for b in range(batch):
-                tot = jnp.zeros((_SUB, _LANES), jnp.float32)
-                for i in range(run):
-                    ct = jax.lax.bitwise_and(cjct_ref[base + i], 0xFFFF)
-                    idx8 = idx_ref[r * run + i].astype(jnp.int32)
-                    v8 = val_ref[r * run + i].astype(jnp.float32)
-                    xw = x_ref[b:b + 1, pl.dslice(ct * _LANES, _LANES)]
-                    xg = jnp.take_along_axis(
-                        jnp.broadcast_to(xw, (_SUB, _LANES)), idx8, axis=1)
-                    tot = tot + v8 * xg
-                acc = dot2_exact_lhs(ones, tot, (((1,), (0,)), ((), ())))
-                o_ref[b * _SUB:(b + 1) * _SUB, cols] += \
-                    acc.astype(o_ref.dtype)
-        return
-    for i in range(c):
-        g = k * c + i
-        # (cj, ct) ride ONE packed int32 per chunk: the scalar-prefetch
-        # plan lives in SMEM (1 MB on v5e), and two int32 streams hit
-        # that wall at ~131k chunks — the GB-scale run's 283k-chunk pack
-        # failed to compile (r4). Packing halves the plan; segmenting
-        # (rsell_spmm_padded) covers the rest.
-        v = cjct_ref[g]
-        cj = jax.lax.shift_right_logical(v, 16)
-        ct = jax.lax.bitwise_and(v, 0xFFFF)
-        idx8 = idx_ref[i].astype(jnp.int32)                  # (8, 128)
-        v8 = val_ref[i].astype(jnp.float32)
-        cols = pl.dslice(cj * _LANES, _LANES)
-        for b in range(batch):
-            xw = x_ref[b:b + 1, pl.dslice(ct * _LANES, _LANES)]
-            xg = jnp.take_along_axis(
-                jnp.broadcast_to(xw, (_SUB, _LANES)), idx8, axis=1)
-            acc = dot2_exact_lhs(ones, v8 * xg, (((1,), (0,)), ((), ())))
-            o_ref[b * _SUB:(b + 1) * _SUB, cols] += acc.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("n_padded", "interpret",
-                                              "chunks_per_step", "run"))
+@functools.partial(jax.jit, static_argnames=("n_padded",))
 def rsell_spmm_padded(
     cj: jax.Array,       # (nchunk,) int32 — output group per chunk
     ct: jax.Array,       # (nchunk,) int32 — contraction window per chunk
@@ -125,119 +44,7 @@ def rsell_spmm_padded(
     x: jax.Array,        # (B, M_padded)
     *,
     n_padded: int,
-    interpret: bool | None = None,
-    chunks_per_step: int | None = None,   # tuning override of the c rule
-    run: int = 1,        # pack's run alignment (8 = every 8-chunk
-                         # sub-block shares cj; see _rsell_kernel)
-) -> jax.Array:          # (B * 8, N_padded): row b*8 holds y_b
-    if interpret is None:
-        interpret = default_interpret()
-    nchunk = vals.shape[0]
-    b = x.shape[0]
-    need = (x.size + n_padded * b * _SUB) * x.dtype.itemsize
-    if need > _WIDE_VMEM_CAP:
-        raise ValueError(
-            f"rsell keeps X and Y whole in VMEM; B={b} x N={n_padded} "
-            f"exceeds the {_WIDE_VMEM_CAP >> 20} MB budget — use "
-            f"SellMatrix/TcsrMatrix for this shape")
-    # Past the default scoped-VMEM comfort zone, raise the per-kernel
-    # limit instead of refusing: v5e VMEM is 128 MB, and the whole-in-VMEM
-    # X/Y + double-buffered chunk stream is the fast shape for thin-band
-    # matrices (AMG prolongators: a tiled-output carrier pays a per-tile
-    # DMA-issue floor ~30x the byte roofline, BENCH.md §Solver).
-    vmem_limit = None if need <= _WIDE_VMEM_LIMIT \
-        else min(need + (8 << 20), 128 << 20)
-    # chunks per step: the shared bytes-targeting rule (tune.blocks_per_step),
-    # capped at 128 to bound the unrolled kernel body; pack-time
-    # 128-alignment of long lists keeps the divisor snap from degrading
-    from tpusparse.tune import blocks_per_step
-
-    # cap 256 (r4 sweep on the rmat-s13-ef16 gallery row: 64/128/256/512
-    # -> 33.4/28.6/26.5/28.6 us; the 1 MB bytes rule picks 205 there and
-    # snaps up). Past geometry the row sits at the measured gather floor:
-    # t ~ max-overlap(bytes/819 GB/s, slots/205 per cycle) — BENCH.md.
-    # Run-aligned packs size steps in RUNS so c stays a run multiple.
-    unit = _SUB * _LANES * (vals.dtype.itemsize + 1)
-    # compile-size budget: the kernel body unrolls c x batch chunk
-    # visits, and Mosaic code size grows superlinearly past ~10k of them
-    # — a blockpruned B=32 step at c=448 serialized a 2.5 GiB executable
-    # (> the protobuf cap, r5). 8192 visits keeps the historical compile
-    # points (c=256 at B=32) inside the envelope.
-    visit_cap = max(_SUB, 8192 // b)
-    if chunks_per_step:
-        c = chunks_per_step
-    elif run > 1:
-        # run packs take 2 MB steps / cap 512: at the 1.45 GB synthetic
-        # config c=512 measured 1945 us (= the stream-only floor, 0.91
-        # roofline) vs 2019 at c=256 — with one RMW per run the unrolled
-        # body is cheap enough to double the step (data/rsell_overlap.json)
-        c = run * blocks_per_step(unit * run, nchunk // run,
-                                  cap=max(1, min(512, visit_cap) // run),
-                                  target=2 * 1024 * 1024)
-    else:
-        c = blocks_per_step(unit, nchunk, cap=min(256, visit_cap))
-    if nchunk % c:
-        raise ValueError(f"chunks_per_step={c} must divide nchunk={nchunk}")
-    if run > 1 and c % run:
-        raise ValueError(f"chunks_per_step={c} must be a multiple of the "
-                         f"pack's run alignment {run}")
-    # the packed plan caps group/window ids at 16 bits each
-    if n_padded // _LANES > 0xFFFF or x.shape[1] // _LANES > 0xFFFF:
-        raise ValueError(
-            f"rsell plan ids are 16-bit packed: padded dims {x.shape[1]}"
-            f"x{n_padded} exceed {0xFFFF * _LANES} — shard the matrix")
-    cjct = (cj.astype(jnp.int32) << 16) | ct.astype(jnp.int32)
-
-    def call(cjct_s, step0, nseg):
-        # ``step0``: static grid-step offset of this segment into the FULL
-        # idx/vals streams. The big operands are passed WHOLE and addressed
-        # through the BlockSpec index map — slicing them under jit would
-        # materialize a GB-scale HBM copy per segment per call (the r4
-        # GB-scale run OOM'd at 17.3 GB from exactly that: a 6-replica
-        # 8.9 GB pool plus overlapped per-call segment copies). Only the
-        # SMEM plan (4 B/chunk) is sliced.
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nseg // c,),
-            in_specs=[
-                pl.BlockSpec((c, _SUB, _LANES),
-                             lambda k, cjct: (step0 + k, 0, 0)),
-                pl.BlockSpec((c, _SUB, _LANES),
-                             lambda k, cjct: (step0 + k, 0, 0)),
-                pl.BlockSpec(x.shape, lambda k, cjct: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((b * _SUB, n_padded),
-                                   lambda k, cjct: (0, 0)),
-        )
-        return pl.pallas_call(
-            functools.partial(_rsell_kernel, c=c, batch=b, run=run),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((b * _SUB, n_padded), x.dtype),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",),
-                vmem_limit_bytes=vmem_limit,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nseg * _SUB * _LANES * b,
-                bytes_accessed=nseg * _SUB * _LANES
-                * (vals.dtype.itemsize + 1),
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )(cjct_s, idx, vals, x)
-
-    # SMEM segmenting: the packed plan must fit the ~1 MB scalar memory
-    # alongside Mosaic's own scalars; past ~192k chunks split the PLAN
-    # and sum the partial outputs (extra traffic: one (B*8, N) output
-    # read+write per extra segment — 0.6% of the 1.48 GB pack that first
-    # hit this wall). nchunk and seg are both multiples of c (the divisor
-    # snap / the explicit raise above), so every segment is too.
-    seg = c * max(1, _SMEM_PLAN_CHUNKS // c)
-    if nchunk <= seg:
-        return call(cjct, 0, nchunk)
-    out = None
-    for lo in range(0, nchunk, seg):
-        hi = min(lo + seg, nchunk)
-        part = call(cjct[lo:hi], lo // c, hi - lo)
-        out = part if out is None else out + part
-    return out
+) -> jax.Array:          # (B, N_padded)
+    part = gather_reduce(window_src(idx, ct), vals, x, axes=(1,))
+    y = jax.ops.segment_sum(part, cj, num_segments=n_padded // _LANES)
+    return y.reshape(n_padded, -1).T.astype(x.dtype)

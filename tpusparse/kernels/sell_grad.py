@@ -1,112 +1,39 @@
-"""Pallas TPU kernel: closed-form SELL value-gradient.
+"""Closed-form SELL value-gradient in plain XLA.
 
 For the linear map y = x @ A with A SELL-packed, the exact value cotangent
 is per-slot:  dvals[j,t,s,r] = sum_b x_b[t*128 + idx[j,t,s,r]] * g_b[j*128+r]
-— the SAME 128-lane in-window gather the forward kernel (sell_spmv.py) uses,
-so it runs at format-bytes speed (~3 VPU ops/slot). The XLA closed form
-(jnp.take_along_axis over the lane axis) lowers to a near-serial gather and
-measured 158 ms on the canonical workload vs this kernel's ~bytes time —
-the same law-5 gap (DESIGN.md) that motivates every kernel here.
+— the same in-window gather the forward product uses (sell_spmv.py),
+followed by an elementwise multiply that XLA fuses with it, so the gradient
+streams the index plane once and writes the value plane once.
 
-Pad slots are marked with index -1 (``idx_signed``) so the kernel can zero
-their cotangent for free (no mask array to stream); real slots carry the
-usual 0..127 in-window offset.
+Pad slots are marked with index -1 (``idx_signed``) so their cotangent is
+zeroed without a mask array; real slots carry the usual 0..127 in-window
+offset.
 
-No reference counterpart (the reference is inference-only); this kernel is
-what makes sparse-weight training (autodiff.trainable_linear) run at the
-format's speed instead of the XLA gather floor.
+No reference counterpart (the reference is inference-only); this is what
+makes sparse-weight training (autodiff.trainable_linear) run at the
+format's byte rate.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpusparse.utils import default_interpret
+from tpusparse.kernels.sell_spmv import window_src
 
 _LANES = 128
-_SUB = 8
 
 
-def _dvals_kernel(idx_ref, x_ref, g_ref, o_ref, *, w: int, tw: int, jb: int,
-                  batch: int):
-    for jj in range(jb):
-        for t in range(tw):
-            idx = idx_ref[jj, t].astype(jnp.int32)        # (W, 128), -1 pads
-            valid = idx >= 0
-            idxc = jnp.maximum(idx, 0)
-            acc = jnp.zeros((w, _LANES), jnp.float32)
-            for b in range(batch):
-                xw = x_ref[b:b + 1, t * _LANES:(t + 1) * _LANES]
-                xg = jnp.take_along_axis(
-                    jnp.broadcast_to(xw, (w, _LANES)), idxc, axis=1)
-                gj = g_ref[b:b + 1, jj * _LANES:(jj + 1) * _LANES]
-                acc = acc + xg * gj                       # (W,128)*(1,128)
-            o_ref[jj, t] = jnp.where(valid, acc, 0.0).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "w", "windows_per_step", "col_groups_per_step", "interpret"))
+@jax.jit
 def sell_dvals_padded(
     idx_signed: jax.Array,   # (nb, nt, W, 128) int8; -1 marks pad slots
     x: jax.Array,            # (B, M_padded)
     g: jax.Array,            # (B, N_padded) — output cotangent
-    *,
-    w: int,
-    windows_per_step: int | None = None,
-    col_groups_per_step: int | None = None,
-    interpret: bool | None = None,
 ) -> jax.Array:              # (nb, nt, W, 128) fp32
-    if interpret is None:
-        interpret = default_interpret()
     nb, nt = idx_signed.shape[0], idx_signed.shape[1]
-    b = x.shape[0]
-    from tpusparse import tune
-
-    if windows_per_step is None or col_groups_per_step is None:
-        # streams idx (1 B) + writes dvals (4 B) per slot — same 5 B/slot
-        # budget as the forward kernel, BUT the OUTPUT block here is the
-        # full (jb, tw, w, 128) fp32 dvals (the forward's out block is a
-        # tiny (B*8, jb*128)), so the shared heuristic's VMEM model
-        # undercounts; shrink until the real double-buffered working set
-        # (in idx + out dvals + x/g strips) fits ~12 MB of scoped VMEM
-        tw0, jb0 = tune.sell_geometry(nt, nb, w, itemsize=4, batch=b)
-
-        def vmem(tw_, jb_):
-            blk = jb_ * tw_ * w * _LANES
-            return 2 * (blk * 1 + blk * 4 + b * (tw_ + jb_) * _LANES * 4)
-
-        while jb0 > 1 and vmem(tw0, jb0) > 12 << 20:
-            jb0 = tune._snap(jb0 - 1, nb)
-        while tw0 > 1 and vmem(tw0, jb0) > 12 << 20:
-            tw0 = tune._snap(tw0 - 1, nt)
-        windows_per_step = windows_per_step or tw0
-        col_groups_per_step = col_groups_per_step or jb0
-    tw = tune._snap(min(windows_per_step, nt), nt)
-    jb = tune._snap(min(col_groups_per_step, nb), nb)
-    grid = (nb // jb, nt // tw)
-    out = pl.pallas_call(
-        functools.partial(_dvals_kernel, w=w, tw=tw, jb=jb, batch=b),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((jb, tw, w, _LANES), lambda j, t: (j, t, 0, 0)),
-            pl.BlockSpec((b, tw * _LANES), lambda j, t: (0, t)),
-            pl.BlockSpec((b, jb * _LANES), lambda j, t: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((jb, tw, w, _LANES), lambda j, t: (j, t, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((nb, nt, w, _LANES), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(idx_signed.size) * b,
-            bytes_accessed=int(idx_signed.size * 5),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(idx_signed, x, g)
-    return out
+    src = window_src(jnp.maximum(idx_signed, 0), jnp.arange(nt))
+    xg = jnp.take(x.T, src, axis=0, mode="clip")        # (nb, nt, W, 128, B)
+    gj = g.T.reshape(nb, 1, 1, _LANES, -1)              # (nb, 1, 1, 128, B)
+    dv = jnp.sum(xg * gj, axis=-1, dtype=jnp.float32)
+    return jnp.where(idx_signed >= 0, dv, 0.0)

@@ -1,132 +1,64 @@
-"""Pallas TPU kernel: sliced-ELL (SELL) SpMV/SpMM — the fast unstructured path.
+"""SELL SpMV/SpMM in plain XLA: the fast unstructured path.
 
-Why this layout wins on TPU where the bitmap path (bell_spmv.py) cannot:
-bitmap ranking costs ~6 VPU ops per *matrix position* regardless of sparsity,
-and the TPU's VPU:HBM ratio (~1 elementwise op per streamed fp32) means any
-per-position decompress is slower than just streaming the dense matrix. SELL
-moves the ranking to the converter and spends VPU ops per *stored slot* only:
-widen int8 index -> gather x within a 128-lane window -> multiply; the
-reduction rides the MXU (ones-matmul). ~3 VPU ops/slot, 5 bytes/slot.
+Layout (formats/sell.py): A (M, N) -> windows t over M (128 each), column
+groups j over N (128 each). ``vals[j, t, w, r]`` = w-th nonzero of output
+column j*128+r within window t (zero-padded to W); ``idx[j, t, w, r]`` = its
+in-window m-offset (int8, 0..127). Pad slots point at offset 0 with value 0.
+
+The product is one gather-multiply-reduce: widen the int8 index, gather
+``x[t*128 + idx]``, multiply by the stored value and sum over (t, w). No
+matmul (hence no TF32 rounding) is involved. X is gathered in its
+transposed (M, B) layout, so the B activations of one slot sit next to
+each other and one stored value serves all of them.
+
+On the GPU, XLA does not fuse the gather into this reduction, whose kept
+axis (the 128 output lanes) is the minor one. At B=1 a loop fusion writes
+the gathered products (4 bytes per slot) and a second kernel reduces
+them; at B=8 the products are also transposed so that the reduced axes
+become minor, and that transpose takes most of the time (PERF.md §5).
+Making the reduction fuse is open work (ROADMAP, Speed 1).
 
 Ancestry in the reference (cited for parity, not copied):
 - per-row packing padded to a max nnz = WSP's ELL idea (wsp.cpp:23-39);
 - converter-precomputed positions replacing in-kernel popcount ranking is
   SURVEY.md §3.3's prescribed translation of `__popc(word & prev_mask)`;
-- slicing M into windows so indices fit 7 bits and gathers stay inside one
-  128-lane VREG window is the TPU analog of the warp-striped AWSP-Ref
-  layout (awsp_ref.cpp:10-24) — the "window" is the lane crossbar's reach
-  instead of a warp's 32 threads.
-
-Layout: A (M, N) -> windows t over M (128 each), column groups j over N
-(128 each). ``vals[j, t, w, r]`` = w-th nonzero of output column j*128+r
-within window t (zero-padded to W); ``idx[j, t, w, r]`` = its in-window
-m-offset (int8, 0..127). Pad slots point at offset 0 with value 0.
+- slicing M into 128-row windows so indices fit 7 bits mirrors the
+  warp-striped AWSP-Ref layout (awsp_ref.cpp:10-24).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpusparse.kernels.precision import dot2_exact_lhs
-from tpusparse.utils import default_interpret
 
 _LANES = 128
-_SUB = 8
 
 
-def _sell_kernel(idx_ref, val_ref, x_ref, *rest, w: int, batch: int,
-                 tw: int, jb: int = 1, has_scale: bool = False):
-    scale_ref = rest[0] if has_scale else None
-    o_ref = rest[-1]
-
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    ones = jnp.ones((_SUB, w), jnp.float32)
-    for jj in range(jb):                                  # col groups / step
-        for b in range(batch):
-            acc = jnp.zeros((_SUB, _LANES), jnp.float32)
-            for t in range(tw):                           # windows per step
-                idx = idx_ref[jj, t].astype(jnp.int32)    # (W, 128)
-                # bf16/int8 storage dtypes widen here; accumulation is fp32
-                vals = val_ref[jj, t].astype(jnp.float32)  # (W, 128)
-                xw = x_ref[b:b + 1, t * _LANES:(t + 1) * _LANES]
-                xg = jnp.take_along_axis(
-                    jnp.broadcast_to(xw, (w, _LANES)), idx, axis=1)
-                prod = vals * xg                          # (W, 128)
-                # reduce over the W sublanes on the MXU (constant
-                # accumulator); all 8 result rows are identical sum copies.
-                # 2-pass split-bf16: the ones lhs is exact in bf16, so this
-                # matches fp32 HIGHEST at a third of the MXU passes.
-                acc = acc + dot2_exact_lhs(
-                    ones, prod, (((1,), (0,)), ((), ())))
-            if has_scale:       # int8 storage: per-column dequant, once
-                row = pl.program_id(0) * jb + jj
-                acc = acc * scale_ref[pl.dslice(row, 1), :]
-            o_ref[b * _SUB:(b + 1) * _SUB,
-                  jj * _LANES:(jj + 1) * _LANES] += acc.astype(o_ref.dtype)
+def window_src(idx: jax.Array, windows: jax.Array) -> jax.Array:
+    """Flat m index ``windows[t] * 128 + idx[..., t, w, r]`` of every slot;
+    ``windows`` indexes axis -3 of ``idx``."""
+    return (windows.astype(jnp.int32)[:, None, None] * _LANES
+            + idx.astype(jnp.int32))
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "w", "windows_per_step", "col_groups_per_step", "interpret"))
+def gather_reduce(src: jax.Array, vals: jax.Array, x: jax.Array,
+                  axes: tuple[int, ...]) -> jax.Array:
+    """``sum over axes of vals * x[:, src]`` with the batch axis LAST:
+    ``src``/``vals`` (..., 128) -> (remaining dims..., B), fp32."""
+    xg = jnp.take(x.T, src, axis=0, mode="clip")          # (..., 128, B)
+    return jnp.sum(vals.astype(jnp.float32)[..., None] * xg, axis=axes)
+
+
+@jax.jit
 def sell_spmm_padded(
     idx: jax.Array,      # (nb, nt, W, 128) int8
     vals: jax.Array,     # (nb, nt, W, 128)
     x: jax.Array,        # (B, M_padded)
-    *,
-    w: int,
-    windows_per_step: int = 64,
-    col_groups_per_step: int = 1,
     scales: jax.Array | None = None,   # (nb, 128) int8-storage dequant
-    interpret: bool | None = None,
-) -> jax.Array:          # (B * 8, N_padded): row b*8 holds y_b
-    # step geometry: 64 windows x 1 column group measured 74.5 us / 94.6%
-    # of format roofline at d=0.5 vs 77.6 us for r1's 16x4 (r2 retune);
-    # bigger contiguous window runs beat wider column fan-out
-    if interpret is None:
-        interpret = default_interpret()
+) -> jax.Array:          # (B, N_padded)
     nb, nt = vals.shape[0], vals.shape[1]
-    b = x.shape[0]
-    # largest divisor <= the requested step sizes: halving could collapse an
-    # odd window count to 1 window/step, hitting the ~0.26 us/step DMA-issue
-    # overhead cliff (BENCH.md)
-    tw = max(d for d in range(min(windows_per_step, nt), 0, -1)
-             if nt % d == 0)
-    jb = max(d for d in range(min(col_groups_per_step, nb), 0, -1)
-             if nb % d == 0)
-    grid = (nb // jb, nt // tw)
-    in_specs = [
-        pl.BlockSpec((jb, tw, w, _LANES), lambda j, t: (j, t, 0, 0)),
-        pl.BlockSpec((jb, tw, w, _LANES), lambda j, t: (j, t, 0, 0)),
-        pl.BlockSpec((b, tw * _LANES), lambda j, t: (0, t)),
-    ]
-    operands = [idx, vals, x]
-    if scales is not None:
-        # whole array resident (nb x 128 fp32 = a few KB): a (jb, 128)
-        # block would violate Mosaic's 8-sublane block minimum at jb < 8
-        in_specs.append(pl.BlockSpec(scales.shape, lambda j, t: (0, 0)))
-        operands.append(scales)
-    out = pl.pallas_call(
-        functools.partial(_sell_kernel, w=w, batch=b, tw=tw, jb=jb,
-                          has_scale=scales is not None),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((b * _SUB, jb * _LANES), lambda j, t: (0, j)),
-        out_shape=jax.ShapeDtypeStruct((b * _SUB, nb * _LANES), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(vals.size) * b,
-            bytes_accessed=int(vals.size * vals.dtype.itemsize + idx.size),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    return out
+    src = window_src(idx, jnp.arange(nt))
+    y = gather_reduce(src, vals, x, axes=(1, 2))          # (nb, 128, B)
+    if scales is not None:           # int8 storage: per-column dequant
+        y = y * scales[:, :, None]
+    return y.reshape(nb * _LANES, -1).T.astype(x.dtype)

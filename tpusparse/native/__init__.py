@@ -58,7 +58,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     fp = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     lib.sell_max_window_nnz.argtypes = [fp, i64, i64]
     lib.sell_max_window_nnz.restype = i32
     lib.sell_fill.argtypes = [fp, i64, i64, i64, fp, i8p]
@@ -67,8 +66,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.csr_count.restype = None
     lib.csr_fill.argtypes = [fp, i64, i64, i32p, i32p, fp]
     lib.csr_fill.restype = None
-    lib.bell_bitmap.argtypes = [fp, i64, i64, i64, u32p]
-    lib.bell_bitmap.restype = None
     lib.sell_fill_csr.argtypes = [i32p, i32p, fp, i64, i64, i64,
                                   ctypes.c_void_p, ctypes.c_void_p]
     lib.sell_fill_csr.restype = i32
@@ -183,18 +180,6 @@ def rsell_fill_csr(row_ptr: np.ndarray, col_idx: np.ndarray,
     idx = np.zeros((nchunk, 8, 128), np.int8)
     lib.rsell_fill_csr(row_ptr, col_idx, values, n, nt, base, vals, idx)
     return vals, idx
-
-
-def bell_bitmap(a: np.ndarray, block_m: int) -> np.ndarray | None:
-    lib = _lib()
-    if lib is None or a.dtype != np.float32:
-        return None
-    a = np.ascontiguousarray(a)
-    mp, np_ = a.shape
-    mb, nb = mp // block_m, np_ // 128
-    bitmap = np.zeros((nb, mb, 128, block_m // 32), np.uint32)
-    lib.bell_bitmap(a, mp, np_, block_m, bitmap)
-    return bitmap
 
 
 def amg_aggregate(indptr: np.ndarray, indices: np.ndarray,

@@ -1,8 +1,8 @@
 // Native host-side format converters (ctypes ABI).
 //
-// TPU-native counterpart of the reference's C++ converter layer (L3 in
-// SURVEY.md §1: matrix_csr.cpp, wsp.cpp, awsp.cpp ...). The algorithms are
-// the TPU layouts defined in tpusparse/formats/*.py — NOT the reference's
+// Counterpart of the reference's C++ converter layer (L3 in SURVEY.md §1:
+// matrix_csr.cpp, wsp.cpp, awsp.cpp ...). The algorithms are the packed
+// layouts defined in tpusparse/formats/*.py — NOT the reference's
 // bit orders — implemented as streaming single-pass packers with OpenMP
 // over independent column tiles. Python falls back to vectorized numpy when
 // this library is unavailable; results are bit-identical (tested).
@@ -216,32 +216,6 @@ void rsell_fill_csr(const int32_t* row_ptr, const int32_t* col_idx,
       vals[pos] = values[k];
       idx[pos] = static_cast<int8_t>(m % kLanes);
       ++slot;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// BELL bitmap (formats/bell.py _mask_to_words): word l % nwords, bit
-// l // nwords, for the pltpu.repeat expansion order.
-//   bitmap[jb, i, r, wd] over blocks of (block_m x 128).
-// ---------------------------------------------------------------------------
-
-void bell_bitmap(const float* a, int64_t mp, int64_t np, int64_t block_m,
-                 uint32_t* bitmap) {
-  const int64_t mb = mp / block_m;
-  const int64_t nb = np / kLanes;
-  const int64_t nwords = block_m / 32;
-#pragma omp parallel for collapse(2)
-  for (int64_t jb = 0; jb < nb; ++jb) {
-    for (int64_t i = 0; i < mb; ++i) {
-      uint32_t* out = bitmap + ((jb * mb + i) * kLanes) * nwords;
-      for (int64_t l = 0; l < block_m; ++l) {
-        const float* row = a + (i * block_m + l) * np + jb * kLanes;
-        const int64_t wd = l % nwords;
-        const uint32_t bit = 1u << (l / nwords);
-        for (int64_t r = 0; r < kLanes; ++r)
-          if (row[r] != 0.0f) out[r * nwords + wd] |= bit;
-      }
     }
   }
 }

@@ -1,9 +1,9 @@
-"""Flax integration: sparse linear layers backed by the Pallas kernels.
+"""Flax integration: sparse linear layers backed by the packed formats.
 
 ``SparseLinear`` is a linen module whose weight is a packed SELL matrix
 with a FROZEN sparsity mask and trainable values (the pruned-training
-regime, autodiff.trainable_linear): the forward/backward both run at
-format-bytes speed (BENCH.md §Training), and the twin-layout parameters
+regime, autodiff.trainable_linear): the forward/backward both stream the
+packed format, and the twin-layout parameters
 live in the module's params pytree, so optax/flax training loops work
 unchanged. Apply the returned mask collection to updates that move
 parameters without gradients (weight decay etc.) — see trainable_linear.

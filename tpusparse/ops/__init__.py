@@ -27,7 +27,7 @@ def _check_compute_format(a: Any) -> None:
     if isinstance(a, CsrMatrix):
         raise TypeError(
             "CsrMatrix is an interchange format (raw row-pointer gathers "
-            "are shape-dynamic and uncompilable on TPU); pack it first, "
+            "are shape-dynamic, which XLA does not compile); pack it first, "
             "e.g. auto_format(csr) or SellMatrix.from_csr(csr) — every "
             "compute format packs from CSR without densifying")
 

@@ -1,8 +1,8 @@
 """Thin collective wrappers so kernels stay topology-agnostic.
 
 SURVEY.md §5 "distributed communication backend": the reference has no comm
-layer at all (only cudaMemcpy, e.g. csr_naive.cu:49-52); the TPU-native
-equivalent is XLA collectives over ICI/DCN. These wrappers are used inside
+layer at all (only cudaMemcpy, e.g. csr_naive.cu:49-52); here it is XLA
+collectives (NCCL on the GPU). These wrappers are used inside
 ``shard_map``-ped functions.
 """
 

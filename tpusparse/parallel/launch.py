@@ -9,18 +9,55 @@ global mesh and generate only this process's slab of the operand.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 import jax
 
 from tpusparse.parallel.mesh import make_mesh
 
+_LOCAL_HOSTS = ("localhost", "127.0.0.1", "::1", "[::1]")
+
+
+def local_devices(coordinator_address: str | None,
+                  num_processes: int | None, process_id: int | None,
+                  local_device_ids: int | list[int] | None = None
+                  ) -> int | list[int] | None:
+    """The cards this process opens; None opens every visible card.
+
+    A JAX process reserves most of every card it opens, so a second
+    process on the same card fails for want of memory. Hence, when several
+    processes are launched and neither ``local_device_ids`` nor the
+    launcher's ``CUDA_VISIBLE_DEVICES`` / ``JAX_LOCAL_DEVICE_IDS`` names
+    the cards, each process takes the one card of its local rank:
+    ``LOCAL_RANK`` when the launcher sets it, else ``process_id`` when the
+    coordinator is on this host (every process then shares it). A
+    multi-host launch with one process per host keeps all its cards.
+    """
+    if local_device_ids is not None:
+        return local_device_ids
+    if (os.environ.get("CUDA_VISIBLE_DEVICES")
+            or os.environ.get("JAX_LOCAL_DEVICE_IDS")
+            or not num_processes or num_processes < 2):
+        return None
+    if os.environ.get("LOCAL_RANK"):
+        return int(os.environ["LOCAL_RANK"])
+    host = (coordinator_address or "").rsplit(":", 1)[0]
+    if process_id is not None and host in _LOCAL_HOSTS:
+        return process_id
+    return None
+
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> None:
+               process_id: int | None = None,
+               local_device_ids: int | list[int] | None = None) -> None:
     """Idempotent ``jax.distributed.initialize`` (env-driven when args are
-    None — TPU pod slices autodetect all three from the metadata server).
+    None; a cluster scheduler may provide all three).
+
+    ``local_device_ids``: the cards this process drives; the default gives
+    each of several processes on one host its own card (``local_devices``).
 
     MUST run before anything touches devices: even ``jax.process_count()``
     initializes the XLA backend, after which distributed init raises. The
@@ -41,13 +78,14 @@ def initialize(coordinator_address: str | None = None,
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=local_devices(
+                                       coordinator_address, num_processes,
+                                       process_id, local_device_ids))
     except ValueError:
         # no coordinator configured anywhere -> single-process run
         pass
     except RuntimeError as e:
-        import os
-
         if "already initialized" in str(e).lower():
             return                                # idempotent re-call
         wants_multi = any(v is not None for v in (

@@ -6,7 +6,7 @@ module is the BASELINE.json-mandated multi-chip layer. Axis names:
 - ``"m"`` — contraction dim shards (each device holds a row-slab of A and the
   matching slice of X; partial Y's are reduced). The SpMV analog of the
   reference's intra-block split of M across 4 warps + smem reduction
-  (asp.cu:13,30-40), lifted to chips + ICI psum.
+  (asp.cu:13,30-40), lifted to chips + a cross-chip psum.
 - ``"n"`` — output dim shards (each device owns a column-slab of A and its
   slice of Y; X must be visible to all, via replication or ring).
 """
@@ -17,20 +17,6 @@ import numpy as np
 
 import jax
 from jax.sharding import Mesh
-
-try:
-    from jax import shard_map as _new_shard_map
-
-    def compat_shard_map(f, *, mesh, in_specs, out_specs, check_vma=True):
-        return _new_shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=check_vma)
-except ImportError:  # pragma: no cover — jax < 0.7 spells the kwarg check_rep
-    from jax.experimental.shard_map import shard_map as _old_shard_map
-
-    def compat_shard_map(f, *, mesh, in_specs, out_specs, check_vma=True):
-        return _old_shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=check_vma)
-
 
 def make_mesh(shape: dict[str, int], devices=None) -> Mesh:
     """Mesh from {'m': a, 'n': b}; total must divide available devices."""

@@ -1,13 +1,13 @@
 """Partitioned multi-chip SpMV/SpMM over a device mesh.
 
-BASELINE.json north star: row-partition the matrix across chips, exchange
-dense-vector segments over ICI, overlap with local compute. Three strategies
+Row-partition the matrix across chips, exchange dense-vector segments
+between them, overlap with local compute. Three strategies
 (all dense-A v1; sparse formats plug in via the same local-kernel hook):
 
 - ``n``    — shard the output dim: each chip owns an A column-slab and its Y
   slice; X replicated. No inter-chip traffic in steady state.
 - ``m``    — shard the contraction dim: each chip owns an A row-slab and its
-  X shard; partial Y's summed with ``psum`` over ICI. The chip-level lift of
+  X shard; partial Y's summed with ``psum``. The chip-level lift of
   the reference's split-M-across-warps + smem-reduce pattern (asp.cu:13-40).
 - ``ring`` — shard both: X shards rotate around the ring via ``ppermute``
   while each chip consumes the matching row-slab of its local column-slab —
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-from tpusparse.parallel.mesh import compat_shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 from tpusparse.parallel import comm
 from tpusparse.parallel.mesh import default_mesh

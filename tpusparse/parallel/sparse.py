@@ -8,8 +8,9 @@ The BASELINE.json scaling component, with no reference counterpart
   comm, Y lands sharded. The chip-level analog of the reference's
   block-per-32-columns decomposition (wsp.cu:13).
 - ``m``  — shard contraction windows: SELL leaves shard on ``nt``, each chip
-  consumes its X shard and psums partial Y over ICI — the chip-level lift of
-  the reference's split-M-across-warps + smem reduction (asp.cu:13-40).
+  consumes its X shard and psums partial Y over the interconnect — the
+  chip-level lift of the reference's split-M-across-warps + smem reduction
+  (asp.cu:13-40).
 - ``2d`` — batch x output mesh for SpMM: X shards over the batch axis, the
   format over the output axis (the DP x TP analog).
 
@@ -26,16 +27,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from tpusparse.parallel import comm
-from tpusparse.parallel.mesh import compat_shard_map as _shard_map
 
 from tpusparse.formats.bsr import bsr_pack
 from tpusparse.formats.sell import SellMatrix
 
 _LANES = 128
-_SUB = 8
 
 
 def _as_2d(x: Any) -> tuple[jax.Array, bool]:
@@ -56,19 +56,6 @@ def _pad_axis(arr: jax.Array, axis: int, mult: int) -> jax.Array:
     return jnp.pad(arr, widths)
 
 
-def _sell_geom(vals_loc: jax.Array, batch: int, w: int) -> dict:
-    """Per-shard step geometry: shards see local (nb, nt), so the
-    bytes-targeting heuristic (tune.sell_geometry) must run on the LOCAL
-    shape — at D=8 an n-shard carries nb/8 column groups and the fixed
-    default would leave grid steps far below the DMA-amortization floor."""
-    from tpusparse import tune
-
-    tw, jb = tune.sell_geometry(
-        vals_loc.shape[1], vals_loc.shape[0], w,
-        itemsize=np.dtype(vals_loc.dtype).itemsize, batch=batch)
-    return dict(windows_per_step=tw, col_groups_per_step=jb)
-
-
 # ----------------------------- SELL ---------------------------------------
 
 
@@ -86,12 +73,10 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: Mesh,
     if x2d.shape[1] != mp:
         x2d = jnp.pad(x2d, ((0, 0), (0, mp - x2d.shape[1])))
 
-    nb, nt = s.vals.shape[0], s.vals.shape[1]
-    w = s.w
     idx_l, vals_l = jnp.asarray(s.idx), jnp.asarray(s.vals)
     # int8 value storage: per-output-column scales shard with the column
-    # groups (nb axis). Dequant happens inside the kernel AFTER each step's
-    # reduction, and scaling commutes with the m/ring partial-sum psum
+    # groups (nb axis). Dequant happens AFTER each partial reduction, and
+    # scaling commutes with the m/ring partial-sum psum
     # (scale * sum(partials) == sum(scale * partials)), so every partition
     # threads them safely.
     sc = None if getattr(s, "scales", None) is None else jnp.asarray(s.scales)
@@ -108,10 +93,8 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: Mesh,
         vals_l = _pad_axis(vals_l, 0, d)
 
         def f(idx_loc, vals_loc, x_full, *rest):
-            out = sell_spmm_padded(idx_loc, vals_loc, x_full, w=w,
-                                   scales=rest[0] if rest else None,
-                                   **_sell_geom(vals_loc, x_full.shape[0], w))
-            return out[::_SUB]                    # (B, nb_loc*128)
+            return sell_spmm_padded(idx_loc, vals_loc, x_full,
+                                    rest[0] if rest else None)
 
         args, specs = _with_scales((idx_l, vals_l, x2d),
                                       (P("n"), P("n"), P()), True, d)
@@ -124,10 +107,9 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: Mesh,
         x2d = _pad_axis(x2d, 1, idx_l.shape[1] * _LANES)
 
         def f(idx_loc, vals_loc, x_loc, *rest):
-            out = sell_spmm_padded(idx_loc, vals_loc, x_loc, w=w,
-                                   scales=rest[0] if rest else None,
-                                   **_sell_geom(vals_loc, x_loc.shape[0], w))
-            return comm.psum_y(out[::_SUB], "n")
+            out = sell_spmm_padded(idx_loc, vals_loc, x_loc,
+                                   rest[0] if rest else None)
+            return comm.psum_y(out, "n")
 
         args, specs = _with_scales(
             (idx_l, vals_l, x2d),
@@ -155,21 +137,20 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: Mesh,
                 t0 = ((my + s) % d) * band
                 idx_b = lax.dynamic_slice_in_dim(idx_loc, t0, band, axis=1)
                 val_b = lax.dynamic_slice_in_dim(vals_loc, t0, band, axis=1)
-                return sell_spmm_padded(idx_b, val_b, xc, w=w,
-                                        scales=rest[0] if rest else None,
-                                        **_sell_geom(val_b, xc.shape[0], w))
+                return sell_spmm_padded(idx_b, val_b, xc,
+                                        rest[0] if rest else None)
 
             def step(s, carry):
                 y, xc = carry
                 return (y + consume(s, xc),
                         comm.ring_shift(xc, "n", shift=-1))
 
-            y0 = jnp.zeros((b * _SUB, idx_loc.shape[0] * _LANES),
-                           x_loc.dtype)   # kernel returns x's dtype
+            y0 = jnp.zeros((b, idx_loc.shape[0] * _LANES),
+                           x_loc.dtype)   # the product returns x's dtype
             y0 = lax.pcast(y0, "n", to="varying")
             # D-1 sends: the last band skips the unread final ring shift
             y, xc = lax.fori_loop(0, d - 1, step, (y0, x_loc))
-            return (y + consume(d - 1, xc))[::_SUB]
+            return y + consume(d - 1, xc)
 
         args, specs = _with_scales((idx_l, vals_l, x2d),
                                       (P("n"), P("n"), P(None, "n")), True, d)
@@ -183,10 +164,8 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: Mesh,
         x2d = _pad_axis(x2d, 0, db)               # zero batch rows
 
         def f(idx_loc, vals_loc, x_loc, *rest):
-            out = sell_spmm_padded(idx_loc, vals_loc, x_loc, w=w,
-                                   scales=rest[0] if rest else None,
-                                   **_sell_geom(vals_loc, x_loc.shape[0], w))
-            return out[::_SUB]
+            return sell_spmm_padded(idx_loc, vals_loc, x_loc,
+                                    rest[0] if rest else None)
 
         args, specs = _with_scales((idx_l, vals_l, x2d),
                                       (P("n"), P("n"), P("b")), True, dn)
@@ -219,14 +198,11 @@ def rsell_spmm_sharded(shards, x: Any, mesh: Mesh) -> jax.Array:
     if mesh.shape["n"] != d:
         raise ValueError(f"packed for {d} shards, mesh has {mesh.shape['n']}")
     nb_loc = shards.group_map.shape[1]
-    b = x2d.shape[0]
 
     def f(cj_loc, ct_loc, idx_loc, vals_loc, x_full):
-        out = rsell_spmm_padded(cj_loc[0], ct_loc[0], idx_loc[0],
-                                vals_loc[0], x_full,
-                                n_padded=nb_loc * _LANES,
-                                run=getattr(shards, "run", 1))
-        return out[::_SUB]
+        return rsell_spmm_padded(cj_loc[0], ct_loc[0], idx_loc[0],
+                                 vals_loc[0], x_full,
+                                 n_padded=nb_loc * _LANES)
 
     y = _shard_map(f, mesh=mesh, check_vma=False,
                    in_specs=(P("n"), P("n"), P("n"), P("n"), P()),
@@ -236,7 +212,7 @@ def rsell_spmm_sharded(shards, x: Any, mesh: Mesh) -> jax.Array:
 
     # concat order is (shard, local column); the pack built ONE static
     # column permutation covering both the shard placement and any
-    # pack-time demand sort — undo it with the permute kernel. Contiguous
+    # pack-time demand sort — undo it with one gather. Contiguous
     # shards (perm_plan None, e.g. sharded-AMG carriers) are already in
     # order and just slice off the shard padding.
     if shards.perm_plan is None:
@@ -254,15 +230,14 @@ def binned_spmm_sharded(bm, x: Any, mesh: Mesh) -> jax.Array:
     """Output-sharded binned SELL: each width bucket's column groups shard
     over the mesh (zero-group padded — no divisibility requirement), bucket
     outputs concatenate in pack order, and the pack-time column sort is
-    undone with the static permute kernel — the distributed twin of
+    undone with one gather — the distributed twin of
     ``BinnedSellMatrix._run``."""
-    from tpusparse.kernels.permute import apply_permutation
     from tpusparse.kernels.sell_spmv import sell_spmm_padded
 
     x2d, squeeze = _as_2d(x)
     d = mesh.shape["n"]
     parts = []
-    for bk, w_k in zip(bm.buckets, bm.widths):
+    for bk in bm.buckets:
         vals = jnp.asarray(bk["vals"])
         idx = jnp.asarray(bk["idx"])
         nbk = vals.shape[0]
@@ -272,18 +247,12 @@ def binned_spmm_sharded(bm, x: Any, mesh: Mesh) -> jax.Array:
         idx_l = _pad_axis(idx, 0, d)
         vals_l = _pad_axis(vals, 0, d)
 
-        def f(idx_loc, vals_loc, x_full, w_k=w_k):
-            out = sell_spmm_padded(idx_loc, vals_loc, x_full, w=w_k,
-                                   **_sell_geom(vals_loc, x_full.shape[0],
-                                                w_k))
-            return out[::_SUB]
-
-        yk = _shard_map(f, mesh=mesh, check_vma=False,
+        yk = _shard_map(sell_spmm_padded, mesh=mesh, check_vma=False,
                         in_specs=(P("n"), P("n"), P()),
                         out_specs=P(None, "n"))(idx_l, vals_l, xp)
         parts.append(yk[:, :nbk * _LANES])        # drop shard-pad groups
     y_sorted = jnp.concatenate(parts, axis=1)
-    y = apply_permutation(y_sorted, bm.perm_plan, bm.shape[1])
+    y = jnp.take(y_sorted, jnp.asarray(bm.inv_perm), axis=1)
     return y[0] if squeeze else y
 
 
@@ -337,11 +306,11 @@ def awsp_spmm_sharded(w: "AwspMatrix", x: Any, mesh: Mesh,
       dead window groups of its own column slab, so traffic per chip is
       (active groups / groups) x (format bytes / D).
     - ``m``: window groups shard across chips (each chip gets its own zero
-      group + a LOCAL plan over its group slab), partial Ys psum over ICI.
-      Per-device plans pad to the longest with the local zero group; a pad
-      entry re-DMAs that zero group (Mosaic re-issues dynamic-index DMAs),
-      so the traffic overhead equals the activation imbalance — zero on
-      i.i.d. X, bounded by the skew on structured X.
+      group + a LOCAL plan over its group slab), partial Ys psum over the
+      interconnect. Per-device plans pad to the longest with the local zero
+      group; a pad entry reduces that zero group again, so the overhead
+      equals the activation imbalance — zero on i.i.d. X, bounded by the
+      skew on structured X.
     - ``ring``: column groups shard on ``nb`` AND X rotates in window-group
       bands via ppermute, each step consuming the matching band with that
       band's precomputed plan — activation skip preserved under the ring.
@@ -349,7 +318,7 @@ def awsp_spmm_sharded(w: "AwspMatrix", x: Any, mesh: Mesh,
     from tpusparse.kernels.awsp_spmv import awsp_spmm_padded
 
     x2d, squeeze = _as_2d(x)
-    width, g = w.w, w.g
+    g = w.g
     d = mesh.shape["n"]
     ng = w.n_groups
     ng_loc = -(-ng // d)
@@ -363,9 +332,8 @@ def awsp_spmm_sharded(w: "AwspMatrix", x: Any, mesh: Mesh,
         vals_l = _pad_axis(jnp.asarray(w.vals), 0, d)
 
         def f(plan_full, idx_loc, vals_loc, x_full):
-            out = awsp_spmm_padded(plan_full, idx_loc, vals_loc, x_full,
-                                   w=width, g=g)
-            return out[::_SUB]                        # (B, nb_loc*128)
+            return awsp_spmm_padded(plan_full, idx_loc, vals_loc, x_full,
+                                    g=g)
 
         y = _shard_map(f, mesh=mesh, check_vma=False,
                        in_specs=(P(), P("n"), P("n"), P()),
@@ -401,8 +369,8 @@ def awsp_spmm_sharded(w: "AwspMatrix", x: Any, mesh: Mesh,
         if partition == "m":
             def f(plan_loc, idx_loc, vals_loc, x_loc):
                 out = awsp_spmm_padded(plan_loc[0], idx_loc[0], vals_loc[0],
-                                       x_loc[0], w=width, g=g)
-                return comm.psum_y(out[::_SUB], "n")
+                                       x_loc[0], g=g)
+                return comm.psum_y(out, "n")
 
             y = _shard_map(f, mesh=mesh, check_vma=False,
                            in_specs=(P("n"), P("n"), P("n"), P("n")),
@@ -427,20 +395,19 @@ def awsp_spmm_sharded(w: "AwspMatrix", x: Any, mesh: Mesh,
                         vals_loc, band * bandw, bandw, axis=1)
                     pl_b = lax.dynamic_index_in_dim(
                         plans_all, band, 0, keepdims=False)
-                    return awsp_spmm_padded(pl_b, idx_b, val_b, xc,
-                                            w=width, g=g)
+                    return awsp_spmm_padded(pl_b, idx_b, val_b, xc, g=g)
 
                 def step(s, carry):
                     y, xc = carry
                     return (y + consume(s, xc),
                             comm.ring_shift(xc, "n", shift=-1))
 
-                y0 = jnp.zeros((b * _SUB, idx_loc.shape[0] * _LANES),
+                y0 = jnp.zeros((b, idx_loc.shape[0] * _LANES),
                                x_loc.dtype)
                 y0 = lax.pcast(y0, "n", to="varying")
                 # D-1 sends: the final band skips the unread ring shift
                 y, xc = lax.fori_loop(0, d - 1, step, (y0, x_loc))
-                return (y + consume(d - 1, xc))[::_SUB]
+                return y + consume(d - 1, xc)
 
             y = _shard_map(f, mesh=mesh, check_vma=False,
                            in_specs=(P(), P("n"), P("n"), P(None, "n")),
@@ -537,8 +504,8 @@ def tcsr_shard_pack(a_or_csr, n_shards: int,
 def tcsr_spmm_sharded(packed: dict[str, Any], x: Any,
                       mesh: Mesh) -> jax.Array:
     """Output-sharded TCSR SpMV/SpMM from ``tcsr_shard_pack`` output: each
-    device runs its SELL-tier tiles (bsell kernel) and dense-tier blocks
-    (bsr kernel) over its own column-group slab; zero steady-state comm."""
+    device runs its SELL-tier tiles (bsell form) and dense-tier blocks
+    (bsr form) over its own column-group slab; zero steady-state comm."""
     from tpusparse.kernels.bsell_spmv import bsell_spmm_padded
     from tpusparse.kernels.bsr_spmv import bsr_spmm_padded
 
@@ -553,7 +520,6 @@ def tcsr_spmm_sharded(packed: dict[str, Any], x: Any,
     b = x2d.shape[0]
     has_sell = "vals" in packed
     has_dense = "blocks" in packed
-    w = packed["w"]
     block_m = packed.get("block_m", _LANES)
 
     def f(*args):
@@ -562,13 +528,12 @@ def tcsr_spmm_sharded(packed: dict[str, Any], x: Any,
         if has_sell:
             sbi, sbj, idx, vals = args[0:4]
             i = 4
-            out = bsell_spmm_padded(sbi[0], sbj[0], idx[0], vals[0],
-                                    args[-1], w=w, n_padded=n_local)
-            y = out[::_SUB][:b]
+            y = bsell_spmm_padded(sbi[0], sbj[0], idx[0], vals[0],
+                                  args[-1], n_padded=n_local)
         if has_dense:
             dbi, dbj, blk = args[i:i + 3]
             yd = bsr_spmm_padded(dbi[0], dbj[0], blk[0], args[-1],
-                                 block_m=block_m, n_padded=n_local)[:b]
+                                 block_m=block_m, n_padded=n_local)
             y = yd if y is None else y + yd
         if y is None:
             y = jnp.zeros((b, n_local), args[-1].dtype)
@@ -714,9 +679,8 @@ def bsr_spmm_sharded(packed: dict[str, Any], x: Any, mesh: Mesh) -> jax.Array:
             b = x2d.shape[0]
 
         def f(bi_loc, bj_loc, blk_loc, x_loc):
-            y = bsr_spmm_padded(bi_loc[0], bj_loc[0], blk_loc[0], x_loc,
-                                block_m=block_m, n_padded=n_local)
-            return y[:x_loc.shape[0]]             # (B8 -> B, n_local)
+            return bsr_spmm_padded(bi_loc[0], bj_loc[0], blk_loc[0], x_loc,
+                                   block_m=block_m, n_padded=n_local)
 
         y = _shard_map(f, mesh=mesh, check_vma=False,
                        in_specs=(P("n"), P("n"), P("n"),
@@ -728,7 +692,7 @@ def bsr_spmm_sharded(packed: dict[str, Any], x: Any, mesh: Mesh) -> jax.Array:
         def f(bi_loc, bj_loc, blk_loc, x_loc):
             y = bsr_spmm_padded(bi_loc[0], bj_loc[0], blk_loc[0], x_loc,
                                 block_m=block_m, n_padded=np_)
-            return comm.psum_y(y[:max(b, 1)], "n")
+            return comm.psum_y(y, "n")
 
         y = _shard_map(f, mesh=mesh, check_vma=False,
                        in_specs=(P("n"), P("n"), P("n"), P(None, "n")),
@@ -739,7 +703,6 @@ def bsr_spmm_sharded(packed: dict[str, Any], x: Any, mesh: Mesh) -> jax.Array:
 
         def f(bi_loc, bj_loc, blk_loc, x_loc):
             my = lax.axis_index("n")
-            b8 = -(-max(b, 1) // _SUB) * _SUB
 
             def consume(s, xc):
                 band = (my + s) % d
@@ -754,11 +717,11 @@ def bsr_spmm_sharded(packed: dict[str, Any], x: Any, mesh: Mesh) -> jax.Array:
                 return (y + consume(s, xc),
                         comm.ring_shift(xc, "n", shift=-1))
 
-            y0 = jnp.zeros((b8, n_local), x_loc.dtype)
+            y0 = jnp.zeros((b, n_local), x_loc.dtype)
             y0 = lax.pcast(y0, "n", to="varying")
             # D-1 sends: the final band skips the unread ring shift
             y, xc = lax.fori_loop(0, d - 1, step, (y0, x_loc))
-            return (y + consume(d - 1, xc))[:max(b, 1)]
+            return y + consume(d - 1, xc)
 
         y = _shard_map(f, mesh=mesh, check_vma=False,
                        in_specs=(P("n"), P("n"), P("n"), P(None, "n")),
@@ -780,8 +743,8 @@ def dia_spmm_sharded(dm, x: Any, mesh: Mesh, partition: str = "halo") -> jax.Arr
     halo of width max|offset| at each slab edge. Partitions:
 
     - ``halo`` — X shards with the output slabs; one ``ppermute`` each way
-      moves just the (hl + hr) halo elements per batch row over ICI, then
-      the k shifted fused multiply-adds run on purely local data. Comm
+      moves just the (hl + hr) halo elements per batch row, then the k
+      shifted fused multiply-adds run on purely local data. Comm
       volume ∝ BANDWIDTH, not m — the 1M-unknown Laplacian's halo is 1024
       of 131k elements/chip at D=8 (0.8%). Requires a square operator and
       halos that fit the neighbor slab (max|offset| <= n/D); the packer
@@ -834,62 +797,6 @@ def dia_spmm_sharded(dm, x: Any, mesh: Mesh, partition: str = "halo") -> jax.Arr
             raise ValueError(
                 f"halo {max(hl, hr)} exceeds the {n_loc}-element slab at "
                 f"D={d}; band too wide for this mesh — use partition='n'")
-        from tpusparse.kernels import dia_spmv as _dk
-
-        hrows = _dk.halo_rows(offsets, dm.sym)
-        hs = hrows * _LANES
-        if b == 1 and hs <= n_loc and _dk.fits(offsets, dm.sym, n_loc):
-            # Pallas body (r4): the XLA form below materializes every
-            # shifted stream AND the halo/mirror concatenates (the 2.4x
-            # D=1 ratio, BENCH_shard_overhead.json); the kernel takes the
-            # ppermute-moved neighbor edges as explicit strip operands, so
-            # the sharded call adds only the strip comm to the unsharded
-            # kernel's single-pass streams. Local slabs must be a multiple
-            # of the kernel's block quantum for the strips to land at the
-            # slab edge, hence the wider global padding (zero-coefficient
-            # columns).
-            nr0 = -(-(-(-n // d)) // _LANES)      # rows of a ceil-split slab
-            rows = _dk._pick_rows(len(offsets), hrows, nr0)
-            # the global pad is (-n) % (d * rows * 128): the bytes-rule
-            # pick can pad catastrophically (512^2 at D=1: rows=976 pads
-            # n by 43%, measured +60% sharded time); walk down in hrows
-            # steps to the largest rows whose pad stays <= 5%
-            best, best_pad = rows, (-n) % (d * rows * _LANES)
-            r = rows
-            while r >= hrows:
-                pad = (-n) % (d * r * _LANES)
-                if pad < best_pad:
-                    best, best_pad = r, pad
-                if pad <= 0.05 * n:
-                    best, best_pad = r, pad
-                    break
-                r -= hrows
-            rows = best
-            np2 = n + (-n % (d * rows * _LANES))
-            n_loc2 = np2 // d
-            vals2 = jnp.pad(jnp.asarray(dm.vals),
-                            ((0, 0), (0, np2 - dm.vals.shape[1])))
-            x2 = jnp.pad(x2d.astype(jnp.float32),
-                         ((0, 0), (0, np2 - x2d.shape[1])))
-
-            def fp(vals_loc, x_loc):
-                xv = x_loc[0]
-                sl = comm.ring_shift(xv[-hs:], "n", shift=1)
-                sr = comm.ring_shift(xv[:hs], "n", shift=-1)
-                vstrip = None
-                if dm.sym:
-                    vh = comm.ring_shift(vals_loc[:, -hs:], "n", shift=1)
-                    vstrip = jnp.where(lax.axis_index("n") == 0, 0.0, vh)
-                y = _dk.dia_spmv_pallas(
-                    offsets, vals_loc, xv, sym=dm.sym, n=n_loc2,
-                    xstrip_l=sl, xstrip_r=sr, vstrip=vstrip, rows=rows)
-                return y[None, :]
-
-            y = _shard_map(fp, mesh=mesh, check_vma=False,
-                           in_specs=(P(None, "n"), P(None, "n")),
-                           out_specs=P(None, "n"))(vals2, x2)
-            y = y[:, :n]
-            return y[0] if squeeze else y
         x2d = x2d.astype(jnp.float32)
         if x2d.shape[1] != np_:
             x2d = jnp.pad(x2d, ((0, 0), (0, np_ - x2d.shape[1])))

@@ -5,20 +5,20 @@ production user arrives with a trained DENSE weight and wants to choose what
 to drop. These are host-side (numpy) one-shot converters returning a
 ``CsrMatrix``, from which any packed format / ``nn.SparseLinear`` /
 ``autodiff.trainable_linear`` is built. Each strategy is shaped by what the
-TPU kernels reward:
+packed formats reward:
 
 - ``magnitude_prune``       — unstructured top-|a|; ``per_column=True``
   equalizes nnz per output column, which directly bounds the SELL window
   width (the padding driver, formats/sell.py) instead of letting a few
   heavy columns set W for everyone.
 - ``nm_prune``              — N:M structured sparsity along the contraction
-  axis. On TPU the win is NOT a sparse-MXU (there is none): with M a
-  divisor of the 128-lane window, every window of every column holds
+  axis. With M a divisor of the 128-row window, every window of every
+  column holds
   exactly ``128*N/M`` nonzeros, so the SELL pack has ZERO padding waste
   and a compile-time-known width — the format's best case.
 - ``block_prune``           — keep the strongest (block_m x 128) blocks;
-  matches the BSR/TCSR tile grid (formats/bsr.py) so kept weights feed the
-  MXU as whole dense tiles.
+  matches the BSR/TCSR tile grid (formats/bsr.py) so kept weights are
+  multiplied as whole dense tiles.
 
 All three preserve values exactly (no rescaling); fine-tuning after pruning
 is the usual recipe — ``autodiff.trainable_linear`` trains the kept values
@@ -106,7 +106,7 @@ def block_prune(a, density: float, *, block_m: int = 128,
     """Keep the (block_m x block_n) blocks with the largest Frobenius
     norms at the target BLOCK density; everything inside a kept block
     survives. Defaults match the BSR tile grid (formats/bsr.py: block_m x
-    128 dense MXU tiles), so ``BsrMatrix.from_csr`` of the result skips
+    128 dense tiles), so ``BsrMatrix.from_csr`` of the result skips
     exactly the pruned blocks. Ragged edges (shape not divisible by the
     block) are padded with zeros for ranking only.
     """

@@ -4,16 +4,14 @@ Banded systems rarely ARRIVE banded: mesh/graph numbering is arbitrary, so
 the nonzeros of a physically-1D/2D-local operator land scattered across
 thousands of diagonals and ``auto_format`` routes them to SELL/RSELL. A
 symmetric permutation ``B[i, j] = A[p[i], p[j]]`` from RCM recovers the
-band, unlocking the DIA fast path (statically-shifted VPU streams — the
-163x solver-iteration win on the 1M Laplacian, BENCH.md §Solver).
+band, unlocking the DIA fast path (statically-shifted streams).
 
 The reference has no reordering (its tester generates uniform random
 matrices, tester.cpp:103-121); this is a beyond-reference extension in the
 direction its TCSR/band-oriented formats point.
 
-Cost model for applying ``p`` (measured, CLAUDE.md): an n- or nnz-scale
-XLA gather on-device is near-serial (~ms at 1M lanes) — never put one on
-the per-SpMV path. The supported pattern is therefore **two-space**:
+Applying ``p`` is an n-scale gather; keep it off the per-SpMV path. The
+supported pattern is therefore **two-space**:
 
     csr_b, p = reorder.rcm(csr)          # once, host-side, O(nnz)
     fmt = auto_format(csr_b)             # now routes to DIA
@@ -21,8 +19,8 @@ the per-SpMV path. The supported pattern is therefore **two-space**:
     z = reorder.unpermute_vector(z_b, p) # once
 
 For small n (<= ~16K) where a caller genuinely needs same-space serving,
-``kernels/permute.py``'s static Pallas permutation (~5 us) applies; its
-one-hot masks are O(n^2/128) bytes, so it does not scale to solver-sized n.
+``kernels/permute.py``'s static permutation applies; its one-hot planes
+are O(n^2/128) bytes, so it does not scale to solver-sized n.
 """
 
 from __future__ import annotations

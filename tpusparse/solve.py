@@ -23,6 +23,11 @@ import jax.numpy as jnp
 from jax import lax
 
 
+def _hdot(a, b):
+    """Matrix product at full fp32 precision (an fp32 matmul may otherwise
+    run in TF32 on the GPU, about three decimal digits)."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
 def _as_apply(a: Any) -> Callable[[jax.Array], jax.Array]:
     if callable(a) and not hasattr(a, "spmv"):
         return a
@@ -43,7 +48,7 @@ def cg(a: Any, b: jax.Array, x0: jax.Array | None = None, *,
     iterations (default: ``len(b)``). Returns ``(z, info)`` with
     ``info = {"iters", "resnorm"}`` (device scalars — fetching them syncs).
     Fully jittable: fixed-shape ``lax.while_loop``; every iteration is one
-    SpMV + a few VPU-trivial vector ops, so solver time ~= iters x the
+    SpMV + a few trivial vector ops, so solver time ~= iters x the
     format's measured SpMV time.
     """
     apply = _as_apply(a)
@@ -205,8 +210,8 @@ def chebyshev_preconditioner(a: Any, lmax, lmin=None,
     multigrid smoother recurrence), as an ``m_inv`` for ``cg``/
     ``bicgstab``.
 
-    The TPU-native preconditioner: each application is ``degree`` pure
-    SpMVs — no triangular solves (sequential, hostile to the VPU), no
+    A preconditioner made of SpMVs: each application is ``degree`` pure
+    SpMVs — no triangular solves (sequential by nature), no
     extra formats. Why use it when it ADDS SpMV work: (1) it divides the
     number of CG iterations — and each iteration's two dot-product
     reductions are latency-bound all-reduces when the operator is
@@ -256,7 +261,7 @@ def gmres(a: Any, b: jax.Array, x0: jax.Array | None = None, *,
     applied on the RIGHT (``S M⁻¹ u = b``, ``z = M⁻¹ u``) so the residual
     test sees the TRUE residual. Orthogonalization is CGS2 (two classical
     Gram–Schmidt passes): unlike sequential MGS its projections are two
-    dense matmuls over the whole basis — MXU/VPU-friendly and one
+    dense matmuls over the whole basis — accelerator-friendly and one
     all-reduce per pass when sharded — with MGS-grade stability.
 
     Fully jittable: the Arnoldi cycle is a fixed-shape ``fori_loop`` over
@@ -297,10 +302,10 @@ def gmres(a: Any, b: jax.Array, x0: jax.Array | None = None, *,
             w = apply(prec(v_basis[j]))
             # CGS2: rows past j are zero, so the full-basis projections
             # are self-masking
-            c1 = v_basis @ w
-            w = w - c1 @ v_basis
-            c2 = v_basis @ w
-            w = w - c2 @ v_basis
+            c1 = _hdot(v_basis, w)
+            w = w - _hdot(c1, v_basis)
+            c2 = _hdot(v_basis, w)
+            w = w - _hdot(c2, v_basis)
             hj = jnp.sqrt(vdot(w, w))
             v_basis = v_basis.at[j + 1].set(
                 jnp.where(hj > tiny, w / jnp.maximum(hj, tiny), 0.0))
@@ -310,7 +315,7 @@ def gmres(a: Any, b: jax.Array, x0: jax.Array | None = None, *,
 
         v_basis, h = lax.fori_loop(0, restart, arnoldi, (v_basis, h))
         y, *_ = jnp.linalg.lstsq(h, beta * e1)
-        return x + prec(y @ v_basis[:restart])
+        return x + prec(_hdot(y, v_basis[:restart]))
 
     r0 = b - apply(x)
 
@@ -337,7 +342,7 @@ def cg_multi(a: Any, b: jax.Array, x0: jax.Array | None = None, *,
     convention); every iteration runs ONE SpMM instead of ``nrhs`` SpMVs,
     so the matrix bytes — the whole cost of a memory-bound solve — are
     amortized across the batch, and ``auto_format(expect_batch=nrhs)``
-    routing (TCSR/ASP over gather-floor SELL, BENCH.md SpMM tables)
+    routing (TCSR/ASP over gather-bound SELL)
     applies to the solver unchanged.
 
     Each column carries its own alpha/beta/residual; converged columns

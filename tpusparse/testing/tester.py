@@ -1,6 +1,6 @@
 """Integration-test / benchmark harness.
 
-TPU-native re-design of ``SparseSgemvTester`` (tester.{hpp,cpp}):
+Re-design of ``SparseSgemvTester`` (tester.{hpp,cpp}):
 
 - seeded generators instead of ``std::random_device`` (tester.cpp:107);
 - a *configurable* kernel registry instead of the hard-coded list

@@ -1,9 +1,6 @@
 from tpusparse.utils.platform import (  # noqa: F401
-    on_tpu,
-    default_interpret,
     cdiv,
     round_up,
     enable_compile_cache,
-    device_put_compressed,
 )
 from tpusparse.utils.timing import time_fn, TimingResult  # noqa: F401
